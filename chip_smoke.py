@@ -10,18 +10,31 @@ verdict, printed only when every phase passed):
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
    and the build of every kernel from ``uncalled_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version on the card, on seeded
-   inputs at the main path's full shapes (B=256, S=98304, SC=122880,
-   CL=2048, RT=6144, RING=23): bits must be equal; median kernel, plain
-   and (where one PyTorch call computes the same function) library times;
-3. the 14 golden reads on the example index through ``BatchMapper``: every
-   PAF line byte-identical to ``tests/fixtures/golden_pafs.json``, with
-   every kernel launched;
-4. real size: a 4.7 Mb repeat-bearing genome, its index and thresholds
-   built here, 8 warm-up + 512 timed simulated reads at B=256 (reads/s,
-   ms per event step, mapped/correct fractions, ejects per tier, launches
-   per kernel per step, peak device memory); kernel inputs captured from
-   live steps are re-checked against the plain versions bit for bit;
-5. the ``{"kernels": [...]}`` line, then the verdict.
+   inputs at the main paths' full shapes (pooled: B=256, S=98304,
+   SC=122880, CL=2048, RT=6144, RING=23; classic: the row gathers of the
+   B=64 rung and the final rung, the row fold at B=64/CL=1024/R=256 and
+   B=32/CL=4096/R=1024): bits must be equal; kernel, plain and (where one
+   PyTorch call computes the same function) library device times;
+3. the 14 golden reads on the example index through ``BatchMapper``, on
+   the pooled engine and on the classic engine: every PAF line
+   byte-identical to ``tests/fixtures/golden_pafs.json``, with every
+   kernel of the path launched; a pooled eject tier, a narrow classic
+   remap ladder, and pooled tiers that chain to the classic final rung
+   each give the golden lines;
+4. pooled at real size: a 4.7 Mb repeat-bearing genome, its index and
+   thresholds built here, 8 warm-up + 512 timed simulated reads at B=256
+   (reads/s, ms per event step, mapped/correct fractions, ejects per tier,
+   launches per kernel per step, peak device memory, the idle share of one
+   profiled block); kernel inputs captured from live steps are re-checked
+   against the plain versions bit for bit; every read is yielded;
+5. classic at real size: the same genome and reads, ``pooled = False`` at
+   the conf defaults (B=64, P=1024, C=1024, CE=1280, R=256, CL=1024, T=64
+   and the default remap ladder), 8 warm-up + 256 timed reads, with the
+   same measures plus reads per ladder rung and a profiled block on every
+   rung that ran, and the same re-check of captured kernel inputs; every
+   read is yielded;
+
+then the ``{"kernels": [...]}`` line and the verdict.
 
 Imports nothing of JAX.  Exits non-zero without a CUDA card, or when run
 outside a checkout of the repository.
@@ -48,6 +61,10 @@ S_FULL = B_FULL * SPR  # 98304
 SC_FULL = S_FULL + S_FULL // 4  # 122880
 RT_FULL = 24 * B_FULL  # 6144
 RING = 23
+N_POOLED, N_CLASSIC = 512, 256  # timed reads of phases 4 and 5
+POOLED_KERNELS = ("flat_gather", "pair_counts", "ring_assemble",
+                  "tracker_fold")
+CLASSIC_KERNELS = ("row_gather", "tracker_fold_rows")
 
 KERNELS = {
     "flat_gather": dict(
@@ -62,7 +79,14 @@ KERNELS = {
     "tracker_fold": dict(
         route="cuda", source="uncalled_tpu_torch/csrc/tracker_kernel.cu",
         replaces="uncalled_tpu/ops/tracker_kernel.py:224"),
+    "row_gather": dict(
+        route="cuda", source="uncalled_tpu_torch/csrc/row_gather.cu",
+        replaces="uncalled_tpu/ops/mxu_gather.py:95 and :157"),
+    "tracker_fold_rows": dict(
+        route="cuda", source="uncalled_tpu_torch/csrc/tracker_kernel.cu",
+        replaces="uncalled_tpu/ops/tracker_kernel.py:190"),
 }
+STEMS = ("flat_gather", "row_gather", "stepkern", "tracker_kernel")
 
 
 def log(*a):
@@ -90,6 +114,8 @@ def same_bits(a, b) -> bool:
 
     if isinstance(a, dict):
         return set(a) == set(b) and all(same_bits(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_bits(x, y) for x, y in zip(a, b))
     return a.dtype == b.dtype and a.shape == b.shape and bool(
         torch.equal(bits(a), bits(b))
     )
@@ -233,6 +259,84 @@ def tracker_case(rng, dev, B=B_FULL, CL=CL_FULL, RT=RT_FULL):
     return st, t(ren), t(mc), t(evt), t(st_w), t(rows)
 
 
+def row_gather_case(rng, dev, B, N, F, K, f32=False):
+    """A per-row table [B, N, F] (or shared [N, F] when B is None) of random
+    32-bit patterns (f32 with NaN payloads, signed zeros and infinities
+    mixed in) and [B or 64, K] indices, some out of range."""
+    import torch
+
+    shape = (N, F) if B is None else (B, N, F)
+    tbl = rng.integers(-2**31, 2**31 - 1, size=shape,
+                       dtype=np.int64).astype(np.int32)
+    if f32:
+        special = np.array([0, -2**31, 0x7F800000, -8388608, 0x7FC00001,
+                            0x7F800001], np.int64).astype(np.int32)
+        tbl.reshape(-1)[rng.integers(0, tbl.size, 4096)] = rng.choice(
+            special, 4096)
+    idx = rng.integers(-4, N + 4, size=(B or 64, K)).astype(np.int32)
+    t = torch.from_numpy(tbl).to(dev)
+    return (t.view(torch.float32) if f32 else t,
+            torch.from_numpy(idx).to(dev))
+
+
+def gather_bytes(tbl, idx, shared) -> int:
+    """Bytes a clamped gather must move: each distinct table row it reads
+    once (per batch row for a per-row table, once in all for a shared
+    one), each index once and each output element once."""
+    import torch
+
+    N, F = tbl.shape[-2], tbl.shape[-1]
+    ix = idx.clamp(0, N - 1).long()
+    if not shared:
+        ix = ix + torch.arange(ix.shape[0], device=ix.device)[:, None] * N
+    rows = int(torch.unique(ix).numel())
+    es = tbl.element_size()
+    return rows * F * es + idx.numel() * (idx.element_size() + F * es)
+
+
+def tracker_rows_case(rng, dev, B, CL, R, fill):
+    """The regimes of tests/test_tracker_kernel.py: tables at occupancy
+    ``fill`` (some zombies), [B, R] rows near existing clusters (matches,
+    ties, collisions, insertions, evictions at fill 1), rows_r uniform in
+    [0, R] and row_ok gating inside each read's count."""
+    import torch
+
+    occ = rng.random((B, CL)) < fill
+    st = {
+        "cl_valid": occ & (rng.random((B, CL)) < 0.9), "cl_count": occ,
+        "cl_ref_st": rng.integers(0, 5000, (B, CL)),
+        "cl_r1": rng.integers(0, 5000, (B, CL)),
+        "cl_r2e": rng.integers(0, 5000, (B, CL)),
+        "cl_evt_st": rng.integers(0, 800, (B, CL)),
+        "cl_evt_en": rng.integers(0, 800, (B, CL)),
+        "cl_total": rng.integers(1, 300, (B, CL)),
+        "len_sum": (rng.random(B) * 100).astype(np.float32),
+        "n_cl": rng.integers(0, CL, B), "mm_len": rng.integers(0, 200, B),
+        "mm_ref_st": rng.integers(0, 5000, B),
+        "mm_r1": rng.integers(0, 5000, B), "mm_r2e": rng.integers(0, 5000, B),
+        "mm_evt_st": rng.integers(0, 800, B),
+        "mm_evt_en": rng.integers(0, 800, B),
+        "ovf": rng.random(B) < 0.05, "ovf_why": rng.integers(0, 4, B),
+    }
+    near = st["cl_r1"][:, :R] + rng.integers(-3, 40, (B, R))
+    mc = rng.integers(1, 30, (B, R))
+    ref_en = np.where(rng.random((B, R)) < 0.6, near + mc - 1,
+                      rng.integers(0, 5000, (B, R)))
+    evt = st["cl_evt_en"][:, :R] + rng.integers(-2, 30, (B, R))
+    rows_r = rng.integers(0, R + 1, B)
+    row_ok = (np.arange(R)[None, :] < rows_r[:, None]) & (
+        rng.random((B, R)) < 0.95)
+
+    def t(a):
+        a = np.ascontiguousarray(a)
+        if a.dtype not in (np.float32, bool):
+            a = a.astype(np.int32)
+        return torch.from_numpy(a).to(dev)
+
+    return ({k: t(v) for k, v in st.items()}, t(ref_en), t(mc), t(evt),
+            t(row_ok), t(rows_r))
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -252,12 +356,12 @@ def phase_card(out):
     log(f"[1] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)}")
     t0 = time.time()
-    for stem in ("flat_gather", "stepkern", "tracker_kernel"):
+    for stem in STEMS:
         _cuda._lib(stem)
     out["build_s"] = time.time() - t0
     log(f"[1] kernels built in {out['build_s']:.2f} s "
         f"(nvcc wall {_cuda.build_seconds:.2f} s)")
-    for stem in ("flat_gather", "stepkern", "tracker_kernel"):
+    for stem in STEMS:
         with open(os.path.join(_cuda.BUILD_DIR, stem + ".log")) as f:
             for line in f:
                 if "registers" in line or "spill" in line:
@@ -275,6 +379,7 @@ def phase_kernels(out, rate):
     dev = torch.device("cuda")
     rng = np.random.default_rng(20261016)
     res = out["kernels"]
+    out["kernel_shapes"] = {}
     ok = True
 
     # flat gather (the assembly pack: F=10, K=S)
@@ -285,7 +390,7 @@ def phase_kernels(out, rate):
                  lambda: fg.flat_gather_fields(tbl, idx),
                  lambda: fg.flat_gather_fields_plain(tbl, idx),
                  lambda: tbl.index_select(0, idx.clamp(0, tbl.shape[0] - 1)),
-                 nbytes=idx.numel() * 4 * (1 + 2 * tbl.shape[1]),
+                 nbytes=gather_bytes(tbl, idx, shared=True),
                  shape=f"tbl {tuple(tbl.shape)} idx {tuple(idx.shape)}")
     # a second main-path shape: one f32 column of the [B*256, 4] prob rows
     p4 = torch.from_numpy(rng.standard_normal((B_FULL * 256, 4)).astype(
@@ -339,6 +444,72 @@ def phase_kernels(out, rate):
     t2 = (25, st2, ren2, mc2, evt2, stw2, rows2)
     ok &= check("tracker_fold[tier CL=16384]", tk.tracker_run_compact(*t2),
                 tk.tracker_run_compact_plain(*t2))
+
+    # row gather (classic step): the rung-0 parent pack (N <= 4096, the
+    # headline), a rung-1/2-sized pack (4096 < N <= 8192), the final
+    # rung's seed-row pack (f32 bits), the shared k-mer range table
+    from uncalled_tpu_torch.ops import mxu_gather as mg
+
+    for label, B, N, F, K, f32 in (
+        ("parent pack", 64, 1024, 9, 1280, False),
+        ("rung-1/2 pack", 64, 6144, 4, 512, False),
+        ("final rung f32", 32, 12500, 4, 1024, True),
+        ("shared kmer_rng2", None, 1024, 2, 1280, False),
+    ):
+        tbl, idx = row_gather_case(rng, dev, B, N, F, K, f32)
+        if B is None:
+            fn, plain = mg.shared_gather, mg.shared_gather_plain
+            ix = idx.clamp(0, N - 1).long()
+
+            def lib(tbl=tbl, ix=ix):
+                return tbl[ix]
+        else:
+            fn, plain = mg.row_gather, mg.row_gather_plain
+            ix = idx.clamp(0, N - 1).long()[:, :, None].expand(B, K, F)
+
+            def lib(tbl=tbl, ix=ix):
+                return torch.gather(tbl, 1, ix)
+        head = label == "parent pack"
+        ok &= report(
+            res if head else out["kernel_shapes"], "row_gather",
+            fn(tbl, idx), plain(tbl, idx), rate,
+            lambda fn=fn, tbl=tbl, idx=idx: fn(tbl, idx),
+            lambda plain=plain, tbl=tbl, idx=idx: plain(tbl, idx), lib,
+            nbytes=gather_bytes(tbl, idx, shared=B is None),
+            key=None if head else f"row_gather[{label}]",
+            shape=f"{label}: tbl {tuple(tbl.shape)} idx {tuple(idx.shape)}")
+    fl = [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (64, 1024, 9),
+                                        dtype=np.int64).astype(np.int32)
+                           ).to(dev)]
+    fi = torch.from_numpy(rng.integers(0, 1024, (64, 1280)).astype(
+        np.int32)).to(dev)
+    ok &= check("row_gather_fields[parent pack]",
+                mg.row_gather_fields(fl[0], fi),
+                [g.contiguous() for g in mg.row_gather_fields_plain(fl[0],
+                                                                    fi)])
+
+    # expanded row fold (classic step): rung 0's shape (the headline, in
+    # the normal regime) and the final rung's, in the three regimes
+    for B, CL, R in ((64, 1024, 256), (32, 4096, 1024)):
+        for regime, fill in (("normal", 0.3), ("full", 1.0),
+                             ("near-empty", 0.02)):
+            st, ren, mc, evt, row_ok, rows_r = tracker_rows_case(
+                rng, dev, B, CL, R, fill)
+            targs = (25, st, ren, mc, evt, row_ok, rows_r)
+            label = f"B={B} CL={CL} R={R} {regime}"
+            if (B, regime) != (64, "normal"):
+                ok &= check(f"tracker_fold_rows[{label}]",
+                            tk.tracker_run(*targs),
+                            tk.tracker_run_plain(*targs))
+                continue
+            tb = sum(st[k].numel() * st[k].element_size() for k in st)
+            nrows = int(rows_r.clamp(max=R).sum())
+            ok &= report(res, "tracker_fold_rows", tk.tracker_run(*targs),
+                         tk.tracker_run_plain(*targs), rate,
+                         lambda targs=targs: tk.tracker_run(*targs),
+                         lambda targs=targs: tk.tracker_run_plain(*targs),
+                         None, nbytes=2 * tb + nrows * 13 + B * 4,
+                         plain_reps=3, shape=f"{label} rows={nrows}")
     return ok
 
 
@@ -352,14 +523,14 @@ def check(name, got, want) -> bool:
 
 
 def report(res, name, got, want, rate, kfn, pfn, lfn, nbytes, shape,
-           plain_reps=10) -> bool:
-    eq = check(name, got, want)
+           plain_reps=10, key=None) -> bool:
+    eq = check(key or name, got, want)
     ms = device_ms(kfn, tag=name)
     plain_ms = device_ms(pfn, reps=plain_reps, tag=name + "_plain")
     lib_ms = device_ms(lfn, tag=name + "_lib") if lfn is not None else None
     call_ms = time_ms(kfn)
     bound_ms = nbytes / rate * 1e3
-    res[name] = dict(
+    res[key or name] = dict(
         KERNELS[name], launches=0, max_abs_err=0.0 if eq else None,
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
         library_ms=lib_ms, call_ms=call_ms, shape=shape, bytes=nbytes,
@@ -383,12 +554,12 @@ class _Read:
         return len(self.signal)
 
 
-def _conf(B, spr, T):
+def _conf(B, spr, T, pooled=True):
     from uncalled_tpu_torch.config import Conf
 
     conf = Conf()
     conf.engine.batch_reads = B
-    conf.engine.pooled = True
+    conf.engine.pooled = pooled
     conf.engine.pool_slots_per_read = spr
     conf.engine.evt_block = T
     conf.engine.slot_handoff = False
@@ -423,7 +594,7 @@ def phase_golden(out):
     for r in bad:
         log(f"[3]   {r}: got {got.get(r)!r}")
     out["golden_launches"] = counts
-    ok = not bad and all(v > 0 for v in counts.values())
+    ok = not bad and all(counts[k] > 0 for k in POOLED_KERNELS)
 
     # a pool too small for the read: it ejects to the pooled wide tier,
     # which runs on the card and must still give the golden line
@@ -440,12 +611,107 @@ def phase_golden(out):
     log(f"[3] eject tier: ejects {[m.n_ejected for m in tiers]}, tier shapes "
         f"(B, S, CL) {shapes}, golden line "
         f"{'identical' if tier_ok else 'MISMATCH'}")
-    return ok and tier_ok
+    classic_ok = phase_golden_classic(out, fmi, th, golden, sigs)
+    return ok and tier_ok and classic_ok
+
+
+def _rungs(bm):
+    """Per rung of a mapper's ladder: its budgets, the reads it harvested
+    (finished or ejected on), the reads it sent on, and its event steps."""
+    out = []
+    for m in bm.tiers():
+        p = m.eng.params
+        out.append(dict(
+            rung=m._rung, pool_tier=m._pool_tier,
+            engine=type(m.eng).__name__, B=p.B,
+            P=getattr(p, "P", None), CL=p.CL, R=p.R,
+            harvested=len(m.demand), ejected=m.n_ejected,
+            finished=len(m.demand) - m.n_ejected,
+            steps=m.disp_events // p.B,
+        ))
+    return out
+
+
+def phase_golden_classic(out, fmi, th, golden, sigs):
+    """The classic engine and its remap ladder on the golden reads."""
+    from uncalled_tpu_torch.mapping.batch import BatchMapper
+    from uncalled_tpu_torch.mapping.engine import MapEngine
+    from uncalled_tpu_torch.ops import _cuda
+    from uncalled_tpu_torch.poremodel import load_default
+
+    model = load_default()
+    # all 14 reads at B=4 (more reads than slots) at the conf defaults
+    bm = BatchMapper(fmi, model, th, _conf(4, 512, 64, pooled=False))
+    reads = [_Read(r, sigs[r]) for r in golden]
+    _cuda.reset_counts()
+    t0 = time.time()
+    got = {p.rd_name: p.to_line() for p in bm.map_reads(reads)}
+    dt = time.time() - t0
+    counts = dict(_cuda.COUNTS)
+    bad = [r for r in golden if got.get(r) != golden[r]]
+    rungs = _rungs(bm)
+    log(f"[3] classic golden: {len(golden) - len(bad)}/{len(golden)} lines "
+        f"byte-identical in {dt:.2f} s; launches {counts}; rungs {rungs}")
+    for r in bad:
+        log(f"[3]   {r}: got {got.get(r)!r}")
+    out["golden_classic"] = dict(seconds=dt, launches=counts, rungs=rungs)
+    ok = (not bad and isinstance(bm.eng, MapEngine)
+          and all(counts[k] > 0 for k in CLASSIC_KERNELS))
+
+    # narrow budgets and a narrow two-rung ladder (tests/test_engine.py
+    # test_remap_ladder_restores_parity): every read climbs it
+    fast = ["sim_0000_Escherichia_coli_3854_+",
+            "sim_0003_Escherichia_coli_6188_-",
+            "sim_0006_Escherichia_coli_5000_+"]
+    conf = _conf(4, 512, 64, pooled=False)
+    conf.engine.remap_ladder = ((64, 4, 8, 16, 0), (1024, 4, 48, 128, 0))
+    bm = BatchMapper(fmi, model, th, conf, P=32, C=32, R=4, CL=8)
+    got = {p.rd_name: p.to_line()
+           for p in bm.map_reads([_Read(r, sigs[r]) for r in fast])}
+    rungs = _rungs(bm)
+    ladder_ok = (all(got.get(r) == golden[r] for r in fast)
+                 and bm.n_ejected == len(fast)
+                 and [r["rung"] for r in rungs] == [0, 1, 2]
+                 and rungs[-1]["P"] == 1024)
+    log(f"[3] narrow ladder: rungs {rungs}, golden lines "
+        f"{'identical' if ladder_ok else 'MISMATCH'}")
+
+    # pooled tiers too small as well: the read goes on to the classic
+    # final rung (tests/test_pooled.py
+    # test_pooled_exhaustion_chains_to_classic_final_rung)
+    rid = fast[0]
+    conf = _conf(2, 512, 64)
+    conf.engine.pool_wide = (96, 256)
+    conf.engine.pool_max = (112, 256)
+    conf.engine.remap_ladder = ((1024, 2, 128, 256, 0),)
+    bm = BatchMapper(fmi, model, th, conf, S=128, SC=160)
+    got = {p.rd_name: p.to_line()
+           for p in bm.map_reads([_Read(rid, sigs[rid])])}
+    rungs = _rungs(bm)
+    final_ok = (got.get(rid) == golden[rid]
+                and [r["ejected"] for r in rungs] == [1, 1, 1, 0]
+                and isinstance(bm.tiers()[-1].eng, MapEngine))
+    log(f"[3] pooled tiers -> classic final rung: rungs {rungs}, golden line "
+        f"{'identical' if final_ok else 'MISMATCH'}")
+    return ok and ladder_ok and final_ok
+
+
+_ASSETS: dict = {}
+
+
+def real_assets():
+    """Phase 4's genome, index, thresholds and reads, built once."""
+    if not _ASSETS:
+        from uncalled_tpu_torch.ops._cuda import BUILD_DIR
+
+        _ASSETS["v"] = build_assets(os.path.join(BUILD_DIR, "smoke_assets"))
+    return _ASSETS["v"]
 
 
 def build_assets(work):
     """The 4.7 Mb genome (seed 42), its index and thresholds, and 8 + 512
-    mismatched simulated reads (seed 123), built from the port's copies."""
+    mismatched simulated reads (seed 123), built from the port's copies
+    (phase 5 maps the first 8 + 256 of the same reads)."""
     from uncalled_tpu_torch.index.build import build_index
     from uncalled_tpu_torch.index.parameterize import build_uncl
     from uncalled_tpu_torch.mapping.thresholds import load_uncl
@@ -468,7 +734,7 @@ def build_assets(work):
     build_uncl(fmi, prefix)
     th = load_uncl(prefix + ".uncl")
     t3 = time.time()
-    reads = simulate_reads(prefix + ".fa", 8 + 512, seed=123,
+    reads = simulate_reads(prefix + ".fa", 8 + N_POOLED, seed=123,
                            read_len_bp=(1000, 4000), mismatch=True)
     t4 = time.time()
     log(f"[4] assets: genome {t1 - t0:.1f} s, index n={fmi.n} {t2 - t1:.1f} s,"
@@ -487,10 +753,7 @@ def phase_real(out, rate):
     from uncalled_tpu_torch.ops import tracker_kernel as tk
     from uncalled_tpu_torch.poremodel import load_default
 
-    from uncalled_tpu_torch.ops._cuda import BUILD_DIR
-
-    work = os.path.join(BUILD_DIR, "smoke_assets")
-    fmi, th, sim = build_assets(work)
+    fmi, th, sim = real_assets()
     model = load_default()
     conf = _conf(B_FULL, SPR, 32)
     bm = BatchMapper(fmi, model, th, conf)
@@ -579,7 +842,6 @@ def phase_real(out, rate):
         and pf.fwd == truth[pf.rd_name][3]
     )
     lines_ok = all(len(pf.to_line().split("\t")) >= 12 for pf in pafs)
-    n_out = len(pafs) + len(bm2.unported_ejects)
     real = dict(
         reads=len(timed), yielded=len(pafs), seconds=dt,
         reads_per_s=len(timed) / dt, steps=steps, steps_tier0=steps0,
@@ -589,7 +851,6 @@ def phase_real(out, rate):
         ejects_per_tier=[m.n_ejected for m in tiers],
         tier_shapes=[(m.eng.params.B, m.eng.params.S, m.eng.params.CL)
                      for m in tiers],
-        unported_ejects=len(bm2.unported_ejects),
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         launches=counts,
         launches_per_step={k: v / max(steps, 1) for k, v in counts.items()},
@@ -600,10 +861,141 @@ def phase_real(out, rate):
     log("[4] real: " + json.dumps(real))
     out["profile"] = profile_block(bm2, timed)
     log("[4] profile: " + json.dumps(out["profile"]))
-    ok &= lines_ok and n_out == len(timed) and n_mapped > 0
-    ok &= all(v > 0 for v in counts.values())
-    for k in out["kernels"]:
-        out["kernels"][k]["launches"] = counts[k]
+    ok &= lines_ok and len(pafs) == len(timed) and n_mapped > 0
+    ok &= all(counts[k] > 0 for k in POOLED_KERNELS)
+    for k in POOLED_KERNELS:
+        if k in out["kernels"]:
+            out["kernels"][k]["launches"] = counts[k]
+    return ok
+
+
+def phase_classic(out):
+    """The classic engine at the conf defaults on phase 4's genome and
+    reads."""
+    import torch
+
+    import uncalled_tpu_torch.mapping.engine as engine
+    from uncalled_tpu_torch.mapping.batch import BatchMapper
+    from uncalled_tpu_torch.ops import _cuda
+    from uncalled_tpu_torch.ops import mxu_gather as mg
+    from uncalled_tpu_torch.ops import tracker_kernel as tk
+    from uncalled_tpu_torch.poremodel import load_default
+
+    fmi, th, sim = real_assets()
+    model = load_default()
+    conf = _conf(64, SPR, 64, pooled=False)
+    bm = BatchMapper(fmi, model, th, conf)
+    p = bm.eng.params
+    log(f"[5] shapes B={p.B} P={p.P} C={p.C} CE={p.CE or 'auto'} R={p.R} "
+        f"CL={p.CL} T={bm.T} ladder {conf.engine.remap_ladder}")
+
+    # capture live kernel inputs during the warm-up run
+    captured = {"row_gather": [], "row_gather_fields": [],
+                "shared_gather": [], "tracker_fold_rows": []}
+    orig = (engine.row_gather, engine.row_gather_fields,
+            engine.shared_gather, tk.tracker_run)
+
+    def keep(name, n, args):
+        if len(captured[name]) < n:
+            captured[name].append(tuple(a.clone() for a in args))
+
+    def cap_rg(tbl, idx):
+        keep("row_gather", 3, (tbl, idx))
+        return orig[0](tbl, idx)
+
+    def cap_rgf(tbl, idx):
+        keep("row_gather_fields", 8, (tbl, idx))
+        return orig[1](tbl, idx)
+
+    def cap_sg(tbl, idx):
+        keep("shared_gather", 2, (tbl, idx))
+        return orig[2](tbl, idx)
+
+    def cap_tracker(*a):
+        if len(captured["tracker_fold_rows"]) < 3 and int(a[6].sum()) > 0:
+            captured["tracker_fold_rows"].append(
+                (a[0], {k: v.clone() for k, v in a[1].items()},
+                 *[x.clone() for x in a[2:]]))
+        return orig[3](*a)
+
+    engine.row_gather, engine.row_gather_fields = cap_rg, cap_rgf
+    engine.shared_gather, tk.tracker_run = cap_sg, cap_tracker
+    warm = [_Read(r.id, r.signal) for r in sim[:8]]
+    t0 = time.time()
+    n_warm = sum(1 for _ in bm.map_reads(warm))
+    log(f"[5] warm-up: {n_warm} reads in {time.time() - t0:.2f} s")
+    (engine.row_gather, engine.row_gather_fields, engine.shared_gather,
+     tk.tracker_run) = orig
+
+    ok = True
+    pairs = {
+        "row_gather": (mg.row_gather, mg.row_gather_plain),
+        "row_gather_fields": (mg.row_gather_fields,
+                              mg.row_gather_fields_plain),
+        "shared_gather": (mg.shared_gather, mg.shared_gather_plain),
+        "tracker_fold_rows": (tk.tracker_run, tk.tracker_run_plain),
+    }
+    for name, calls in captured.items():
+        fn, plain = pairs[name]
+        for i, a in enumerate(calls):
+            got, want = fn(*a), plain(*a)
+            if name == "row_gather_fields":
+                want = [w.contiguous() for w in want]
+            torch.cuda.synchronize()
+            eq = same_bits(got, want)
+            ok &= eq
+            log(f"[5] captured {name}#{i}: "
+                f"{'bit-equal' if eq else 'MISMATCH'}")
+        ok &= bool(calls)
+
+    # the timed run
+    truth = {r.id: (r.ref_name, r.ref_start, r.ref_end, r.fwd) for r in sim}
+    timed = [_Read(r.id, r.signal) for r in sim[8: 8 + N_CLASSIC]]
+    bm2 = BatchMapper(fmi, model, th, conf, engine=bm.eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_counts()
+    t0 = time.time()
+    pafs = list(bm2.map_reads(timed))
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    counts = dict(_cuda.COUNTS)
+    rungs = _rungs(bm2)
+    steps = sum(r["steps"] for r in rungs)
+    n_mapped = sum(1 for pf in pafs if pf.is_mapped)
+    n_correct = sum(
+        1 for pf in pafs if pf.is_mapped and pf.rf_name == truth[pf.rd_name][0]
+        and truth[pf.rd_name][1] - 500 <= pf.rf_st <= truth[pf.rd_name][2] + 500
+        and pf.fwd == truth[pf.rd_name][3]
+    )
+    lines_ok = all(len(pf.to_line().split("\t")) >= 12 for pf in pafs)
+    real = dict(
+        reads=len(timed), yielded=len(pafs), seconds=dt,
+        reads_per_s=len(timed) / dt, steps=steps,
+        ms_per_step=dt * 1e3 / max(steps, 1),
+        mapped_frac=n_mapped / len(timed), correct_frac=n_correct / len(timed),
+        correct_of_mapped=n_correct / max(n_mapped, 1),
+        rungs=rungs,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=counts,
+        launches_per_step={k: v / max(steps, 1) for k, v in counts.items()},
+        useful_frac=bm2.useful_events / max(bm2.disp_events, 1),
+    )
+    out["classic"] = real
+    log("[5] classic: " + json.dumps(real))
+    # one profiled block on every rung that ran (its first B timed reads)
+    out["classic_profile"] = {}
+    for m in bm2.tiers():
+        if m.disp_events:
+            prof = profile_block(m, timed)
+            out["classic_profile"][f"rung {m._rung}"] = prof
+            log(f"[5] profile rung {m._rung} (B={m.eng.params.B}, "
+                f"P={m.eng.params.P}): " + json.dumps(prof))
+    ok &= lines_ok and len(pafs) == len(timed) and n_mapped > 0
+    ok &= all(counts[k] > 0 for k in CLASSIC_KERNELS)
+    for k in CLASSIC_KERNELS:
+        if k in out["kernels"]:
+            out["kernels"][k]["launches"] = counts[k]
     return ok
 
 
@@ -663,7 +1055,7 @@ def profile_block(bm, reads):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4")
+    ap.add_argument("--phases", default="1,2,3,4,5")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     try:
@@ -694,6 +1086,8 @@ def main(argv=None) -> int:
         ok &= phase_golden(out)
     if 4 in phases:
         ok &= phase_real(out, rate)
+    if 5 in phases:
+        ok &= phase_classic(out)
     from uncalled_tpu_torch.ops._cuda import BUILD_DIR
 
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -702,7 +1096,7 @@ def main(argv=None) -> int:
     print(out["card"])
     print(json.dumps({"kernels": [dict(name=k, **v)
                                   for k, v in out["kernels"].items()]}))
-    if not ok or phases != {1, 2, 3, 4}:
+    if not ok or phases != {1, 2, 3, 4, 5}:
         log("chip_smoke: FAILED" if not ok else "chip_smoke: partial run")
         return 1
     print(json.dumps({"ok": True, "device": {

@@ -92,10 +92,13 @@ def test_pool_exhaustion_wide_pool_tier(assets):
 
 
 def test_last_tier_ejects_are_recorded(assets):
-    """When every pooled tier trips, the read's next rung (the classic
-    engine) is not ported: it is recorded, with its overflow bits, and not
-    yielded."""
+    """When every pooled tier trips (tiny pool_wide and pool_max), each
+    tier records the overflow and the read goes on to the classic final
+    rung, which gives the golden line (mirror of
+    tests/test_pooled.py::test_pooled_exhaustion_chains_to_classic_final_rung)."""
     from uncalled_tpu_torch.mapping.batch import BatchMapper
+    from uncalled_tpu_torch.mapping.engine import MapEngine
+    from uncalled_tpu_torch.mapping.pooled import PooledEngine
 
     fmi, model, th, golden, sigs = assets
     c = conf(2)
@@ -103,8 +106,13 @@ def test_last_tier_ejects_are_recorded(assets):
     c.engine.pool_max = (112, 256)
     c.engine.remap_ladder = ((1024, 2, 128, 256, 0),)
     bm = BatchMapper(fmi, model, th, c, device="cpu", S=128, SC=160)
-    got = list(bm.map_reads([Read(RID, sigs[RID])]))
-    assert got == []
-    assert [m._pool_tier for m in bm.tiers()] == [0, 1, 2]
-    assert list(bm.unported_ejects) == [RID]
-    assert bm.unported_ejects[RID] & (2 | 8)
+    got = {p.rd_name: p.to_line()
+           for p in bm.map_reads([Read(RID, sigs[RID])])}
+    tiers = bm.tiers()
+    assert [m._pool_tier for m in tiers[:3]] == [0, 1, 2]
+    assert all(isinstance(m.eng, PooledEngine) for m in tiers[:3])
+    assert all(m.ovf_why[RID] & (2 | 8) for m in tiers[:3])
+    assert [m.n_ejected for m in tiers] == [1, 1, 1, 0]
+    final = tiers[3]
+    assert isinstance(final.eng, MapEngine) and final._rung == 1
+    assert got[RID] == golden[RID]

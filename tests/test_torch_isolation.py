@@ -68,7 +68,7 @@ def test_entry_points_default_to_cuda(monkeypatch):
     from uncalled_tpu_torch.config import Conf
     from uncalled_tpu_torch.index.bwa_compat import load_bwa_index
     from uncalled_tpu_torch.mapping.batch import BatchMapper
-    from uncalled_tpu_torch.mapping.engine import device_index
+    from uncalled_tpu_torch.mapping.engine import MapEngine, device_index
     from uncalled_tpu_torch.mapping.pooled import PooledEngine
     from uncalled_tpu_torch.mapping.thresholds import load_uncl
     from uncalled_tpu_torch.poremodel import load_default
@@ -85,12 +85,19 @@ def test_entry_points_default_to_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA"):
         PooledEngine(fmi, model, th, conf)
     with pytest.raises(RuntimeError, match="no CUDA"):
+        MapEngine(fmi, model, th, conf)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        BatchMapper(fmi, model, th, conf)
+    conf.engine.pooled = False
+    with pytest.raises(RuntimeError, match="no CUDA"):
         BatchMapper(fmi, model, th, conf)
     with pytest.raises(RuntimeError, match="no CUDA"):
         device_index(fmi, th, model)
     # the CPU is used only when asked for
     eng = PooledEngine(fmi, model, th, conf, device="cpu", B=4)
     assert eng.fresh_state()["q_rid"].device.type == "cpu"
+    eng = MapEngine(fmi, model, th, conf, device="cpu", B=4)
+    assert eng.fresh_state()["p_cum"].device.type == "cpu"
 
 
 @pytest.mark.parametrize("alone", [False, True])
@@ -124,6 +131,7 @@ def test_unported_options_raise():
     from uncalled_tpu_torch.config import Conf
     from uncalled_tpu_torch.index.bwa_compat import load_bwa_index
     from uncalled_tpu_torch.mapping.batch import BatchMapper
+    from uncalled_tpu_torch.mapping.engine import MapEngine
     from uncalled_tpu_torch.mapping.pooled import PooledEngine
     from uncalled_tpu_torch.mapping.thresholds import load_uncl
     from uncalled_tpu_torch.poremodel import load_default
@@ -141,3 +149,5 @@ def test_unported_options_raise():
                  {"sampled_sa": True}):
         with pytest.raises(NotImplementedError):
             PooledEngine(fmi, model, th, conf, device="cpu", B=4, **over)
+    with pytest.raises(NotImplementedError):
+        MapEngine(fmi, model, th, conf, device="cpu", B=4, sampled_sa=True)

@@ -1,4 +1,4 @@
-"""Carry index tables and pooled state between numpy and the port's tensors.
+"""Carry index tables and engine state between numpy and the port's tensors.
 
 The tests use these to feed the very same index and state to the JAX
 package (as numpy) and to the port, and to compare the results key by key.
@@ -34,10 +34,14 @@ def index_from_numpy(tables: dict, device="cpu") -> dict:
 
 
 def state_from_numpy(state: dict, device="cpu") -> dict:
-    """Pool-state dict of numpy arrays -> tensors on ``device`` (dtypes kept)."""
+    """State dict of numpy arrays -> tensors on ``device`` (dtypes kept).
+
+    Serves both engines: the pooled engine's pool state and the classic
+    ``MapEngine``'s per-read state (``make_state`` of either package)."""
     return {k: _tensor(np.asarray(v), device) for k, v in state.items()}
 
 
 def state_to_numpy(state: dict) -> dict:
-    """Pool-state dict of tensors -> numpy arrays (dtypes kept)."""
+    """State dict of tensors -> numpy arrays (dtypes kept), for the pooled
+    engine's pool state and the classic ``MapEngine``'s state alike."""
     return {k: v.detach().cpu().numpy() for k, v in state.items()}

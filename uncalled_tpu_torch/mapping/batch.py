@@ -1,17 +1,20 @@
 """Host orchestration for batch mapping: reads -> events -> engine -> PAF.
 
-Port of ``uncalled_tpu.mapping.batch.BatchMapper`` on the pooled engine:
-B read slots advance T events per block; finished slots are harvested and
-refilled from the read queue (longest reads first), one block in flight
-while the host harvests the previous one.  Reads that overflow a physical
-pool cap are ejected and rerun on the pooled wide tiers
-(``conf.engine.pool_wide``, ``pool_max``).
+Port of ``uncalled_tpu.mapping.batch.BatchMapper``: B read slots advance
+T events per block; finished slots are harvested and refilled from the
+read queue (longest reads first), one block in flight while the host
+harvests the previous one.  The entry engine is the pooled engine
+(``conf.engine.pooled``) or the classic ``MapEngine``.  Reads that trip a
+budget are ejected early and rerun wider: a pooled entry's ejects go to
+the pooled wide tiers (``conf.engine.pool_wide``, ``pool_max``) and then
+to the remap ladder's final rung; a classic entry's go up the classic
+remap ladder (``conf.engine.remap_ladder``), each read to the first rung
+whose budgets cover its observed demand.  The last rung runs the
+reference's budgets and ignores its own overflow flags.
 
-Not in this port yet: the in-scan slot handoff, the straggler drain chain
-(both raise unless ``conf.engine.slot_handoff`` and ``drain_shrink`` are
-off; neither changes a PAF byte) and the classic ``MapEngine`` rung
-behind the last pooled tier — a read that the last tier ejects is
-recorded in ``unported_ejects`` (read id -> ovf_why) and not yielded.
+Not in this port yet: the in-scan slot handoff and the straggler drain
+chain (both raise unless ``conf.engine.slot_handoff`` and ``drain_shrink``
+are off; neither changes a PAF byte).
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import numpy as np
 from ..config import Conf
 from ..kmer import K
 from ..ops.events import detect_events_np
+from .engine import MapEngine
 from .paf import Paf, Tag
 from .pooled import PooledEngine
 
@@ -58,8 +62,9 @@ class BatchMapper:
     """Map an iterable of reads, yielding Paf records (order of completion)."""
 
     def __init__(self, fmi, model, threshes, conf: Conf | None = None,
-                 emit_timing: bool = False, device=None, _pool_tier: int = 0,
-                 engine=None, _B_entry: int = 0, **over):
+                 emit_timing: bool = False, device=None, _rung: int = 0,
+                 _pool_tier: int = 0, engine=None, _B_entry: int = 0,
+                 **over):
         self.conf = conf or Conf()
         en = self.conf.engine
         if en.slot_handoff or en.drain_shrink:
@@ -68,22 +73,26 @@ class BatchMapper:
                 "set conf.engine.slot_handoff = conf.engine.drain_shrink = "
                 "False"
             )
-        if not en.pooled:
-            raise NotImplementedError("only the pooled engine is ported")
         if engine is None:
-            # drop classic per-read budget knobs the pool doesn't have
-            pover = {k: v for k, v in over.items()
-                     if k not in ("P", "C", "CE", "R")}
-            engine = PooledEngine(fmi, model, threshes, self.conf,
-                                  device=device, **pover)
+            if en.pooled and _rung == 0:
+                # drop classic per-read budget knobs the pool doesn't have
+                pover = {k: v for k, v in over.items()
+                         if k not in ("P", "C", "CE", "R")}
+                engine = PooledEngine(fmi, model, threshes, self.conf,
+                                      device=device, **pover)
+            else:
+                engine = MapEngine(fmi, model, threshes, self.conf,
+                                   device=device, **over)
         self.eng = engine
         self.fmi = fmi
         self.model = model
         self.threshes = threshes
         self.T = en.evt_block
         self.emit_timing = emit_timing
-        # the eject tiers share the classic ladder's last-rung position
-        self._rung = max(len(en.remap_ladder) - 1, 0) if _pool_tier else 0
+        # position on the remap ladder: rung 0 is the entry engine, rungs
+        # 1..len(remap_ladder) are built lazily from conf; the pooled eject
+        # tiers sit at the last rung's position
+        self._rung = _rung
         self._pool_tier = _pool_tier
         self._B_entry = _B_entry or self.eng.params.B
         self._dsp_pool = None
@@ -93,9 +102,6 @@ class BatchMapper:
         self.disp_events = 0  # B*T per advance
         self.useful_events = 0  # per-read evt_i at harvest
         self.n_ejected = 0  # reads this mapper sent on to the next tier
-        # reads the last pooled tier ejected (read id -> ovf_why): their
-        # next rung, the classic MapEngine, is not ported yet
-        self.unported_ejects: dict = {}
         self.pool_hw = np.zeros(5, np.int64)
 
     def _pool_tiers(self):
@@ -109,32 +115,64 @@ class BatchMapper:
         return tiers
 
     def _get_next(self) -> "BatchMapper":
-        """The next pooled eject tier (built lazily, cached): the same
-        engine with wider pools on a narrow slot array (the JAX mapper's
-        sizing, batch.py _get_next)."""
+        """The next (wider) rung, built lazily and cached: for a pooled
+        engine with pooled tiers left, the same engine with wider pools on
+        a narrow slot array (the JAX mapper's sizing, batch.py _get_next);
+        otherwise the classic engine at the remap ladder's next budgets."""
+        en = self.conf.engine
         if self._next_mapper is None:
-            slots, CLw = self._pool_tiers()[self._pool_tier]
-            Bw = max(2, self._B_entry // (16 * (2 ** self._pool_tier)))
-            if slots >= 512:
-                Bw = max(8 // (1 + self._pool_tier), Bw)
-            SCw = min(5 * Bw * slots,
-                      max(Bw * slots + Bw * slots // 4, 24576))
+            tiers = self._pool_tiers()
+            if (isinstance(self.eng, PooledEngine)
+                    and self._pool_tier < len(tiers)):
+                slots, CLw = tiers[self._pool_tier]
+                Bw = max(2, self._B_entry // (16 * (2 ** self._pool_tier)))
+                if slots >= 512:
+                    Bw = max(8 // (1 + self._pool_tier), Bw)
+                SCw = min(5 * Bw * slots,
+                          max(Bw * slots + Bw * slots // 4, 24576))
+                self._next_mapper = BatchMapper(
+                    self.fmi, self.model, self.threshes, self.conf,
+                    emit_timing=self.emit_timing,
+                    _rung=max(len(en.remap_ladder) - 1, 0),
+                    _pool_tier=self._pool_tier + 1,
+                    _B_entry=self._B_entry,
+                    engine=PooledEngine(
+                        self.fmi, self.model, self.threshes, self.conf,
+                        device=self.eng.device,
+                        B=Bw, S=Bw * slots, SC=SCw,
+                        CL=CLw, R=max(1024, self.eng.params.R), FS=512,
+                        RE=2048, RT=max(8192, self.eng.params.RT),
+                    ),
+                )
+                self._next_mapper.T = min(2 * self.T, 128)
+                return self._next_mapper
+            P, B, R, CL, CE = en.remap_ladder[self._rung]
             self._next_mapper = BatchMapper(
                 self.fmi, self.model, self.threshes, self.conf,
-                emit_timing=self.emit_timing,
-                _pool_tier=self._pool_tier + 1,
-                _B_entry=self._B_entry,
-                engine=PooledEngine(
-                    self.fmi, self.model, self.threshes, self.conf,
-                    device=self.eng.device,
-                    B=Bw, S=Bw * slots, SC=SCw,
-                    CL=CLw, R=max(1024, self.eng.params.R), FS=512,
-                    RE=2048, RT=max(8192, self.eng.params.RT),
-                ),
+                emit_timing=self.emit_timing, device=self.eng.device,
+                _rung=self._rung + 1, B=B, P=P, C=P, R=R, CL=CL, CE=CE,
             )
-            self._next_mapper.T = min(2 * self.T, 128)
-            self._next_mapper.unported_ejects = self.unported_ejects
         return self._next_mapper
+
+    def _rung_fits(self, rung_i: int, why: int, dm) -> bool:
+        """Could ladder rung ``rung_i`` hold a read whose overflow bits and
+        demand lower bounds are (why, dm)?  Demand maxima are exact until
+        the first budget cut, so a rung whose budgets do not cover the
+        observed demand would overflow again; the last rung always fits
+        (its budgets are the reference's)."""
+        ladder = self.conf.engine.remap_ladder
+        if rung_i >= len(ladder):
+            return True
+        P, _, R, CL, CE = ladder[rung_i]
+        CE = CE if CE else P + max(P // 4, 256)
+        fl, va, pa, rw, cl_dm = dm
+        if fl > CE or va > P or pa > P or rw > R or cl_dm > CL:
+            return False
+        # after a cluster-table eviction (bit 1) the observed dm_cl is
+        # capped at the tripped table's CL, so the true demand exceeds it
+        if (why & 1) and CL <= max(self.eng.params.CL, cl_dm):
+            return False
+        return True
 
     def tiers(self) -> list:
         """This mapper and the eject tiers built below it, in order."""
@@ -293,7 +331,8 @@ class BatchMapper:
                     if remap and ro["ovf"][b]:
                         self.ovf_why[s.read.id] = int(ro["ovf_why"][b])
                         self.demand[s.read.id] = dm
-                        overflowed.append((s.read, int(ro["ovf_why"][b])))
+                        overflowed.append(
+                            (s.read, int(ro["ovf_why"][b]), dm))
                         self.useful_events += int(ro["evt_i"][b])
                         slots[b] = None
                         pending -= 1
@@ -310,15 +349,31 @@ class BatchMapper:
                 state = refill(state)
             pend = new_pend
 
-        hw = state["dm_pool"].cpu().numpy()
-        np.maximum(self.pool_hw, hw, out=self.pool_hw)
+        if "dm_pool" in state:
+            np.maximum(self.pool_hw, state["dm_pool"].cpu().numpy(),
+                       out=self.pool_hw)
         if not overflowed:
             return
         self.n_ejected += len(overflowed)
-        if self._pool_tier < len(self._pool_tiers()):
+        if (isinstance(self.eng, PooledEngine)
+                and self._pool_tier < len(self._pool_tiers())):
+            # pooled ejects are physical pool cuts (the per-read budget is
+            # already the reference's): all go to the next pooled tier
             yield from self._get_next().map_reads(
-                [read for read, _ in overflowed]
+                [read for read, _, _ in overflowed]
             )
             return
-        for read, why in overflowed:
-            self.unported_ejects[read.id] = why
+        # remap pass, demand-routed: each read goes to the first rung whose
+        # budgets cover its observed demand (the last rung always does)
+        ladder = self.conf.engine.remap_ladder
+        groups: dict = {}
+        for read, why, dm in overflowed:
+            j = self._rung
+            while not self._rung_fits(j, why, dm):
+                j += 1
+            groups.setdefault(min(j, len(ladder) - 1), []).append(read)
+        for j in sorted(groups):
+            m = self
+            while m._rung <= j:
+                m = m._get_next()
+            yield from m.map_reads(groups[j])

@@ -1,11 +1,18 @@
-"""Engine helpers the pooled step uses, in PyTorch.
+"""The classic batched mapping engine and the helpers both engines share,
+in PyTorch (port of ``uncalled_tpu.mapping.engine``).
 
-Port of the helper layer of ``uncalled_tpu.mapping.engine`` that
-``pooled._pool_event_step`` imports: the device index tables, FM-index
-occurrence counts and backward extension, the clz threshold bin, the f64
-match probabilities, the seed-tracker row fold and decision, and the
-packed per-read readout.  Every function is bit-exact to its JAX
-counterpart (tests/test_torch_engine.py).
+The helper layer (the device index tables, FM-index occurrence counts and
+backward extension, the clz threshold bin, the f64 match probabilities,
+the seed-tracker row update and decision, the packed per-read readout)
+serves ``pooled._pool_event_step`` and the classic step alike.  The
+classic engine ``MapEngine`` advances B reads through one event per step
+with fixed per-read budgets ([B, P] paths, C candidates, R seed rows, a
+[B, CL] cluster table): it is the entry engine of ``BatchMapper`` with
+``conf.engine.pooled = False`` and every rung of the remap ladder.  On the
+card its gathers run on the ``row_gather`` kernel and its seed-row fold on
+``tracker_fold_rows``; the step does no host synchronisation.  Every
+function is bit-exact to its JAX counterpart (tests/test_torch_engine.py,
+tests/test_torch_classic_step.py).
 
 Integer rules: every integer tensor is int32 as in the JAX package;
 unsigned 32-bit word arithmetic (popcounts, logical shifts) runs on int64
@@ -15,11 +22,16 @@ arithmetically.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
+from ..config import Conf
 from ..convert import index_from_numpy
 from ..device import resolve
+from ..kmer import KMER_COUNT
+from ..ops.mxu_gather import row_gather, row_gather_fields, shared_gather
 
 I32, F32, F64 = torch.int32, torch.float32, torch.float64
 INT32_MAX = 2**31 - 1
@@ -346,3 +358,613 @@ def readout_get(packed, keys=READOUT_KEYS) -> dict:
     for k in ("done", "success", "ovf"):
         out[k] = out[k].astype(bool)
     return out
+
+
+# ---------------------------------------------------------------------------
+# sort key and segmented running max (both steps)
+# ---------------------------------------------------------------------------
+
+def _f32_sort_key(x):
+    """int32 key reproducing lax.sort's f32 order exactly: monotone
+    sign-magnitude flip, +/-0 equal (key 0), every NaN equal and largest
+    (key INT32_MAX): -inf < finite (-0 == +0) < +inf < nan."""
+    i = x.view(I32)
+    mono = i ^ torch.where(i < 0, INT32_MAX, 0).to(I32)
+    return torch.where(
+        torch.isnan(x), INT32_MAX, torch.where(x == 0, 0, mono)
+    ).to(I32)
+
+
+def _seg_running_max(seg_id, vals, dim=0):
+    """Running max along ``dim`` within contiguous segments of a
+    non-decreasing int32 ``seg_id``: out[i] = max(vals[j] for j <= i,
+    seg_id[j] == seg_id[i]).  One int64 cummax of (seg_id, vals + 2^31) —
+    exact."""
+    key = (seg_id.to(torch.int64) << 32) | (vals.to(torch.int64) + 2**31)
+    run = torch.cummax(key, dim).values
+    return ((run & 0xFFFFFFFF) - 2**31).to(I32)
+
+
+# ---------------------------------------------------------------------------
+# the classic engine: parameters and state
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class EngineParams:
+    """Static parameters of the classic engine (the JAX EngineParams
+    fields)."""
+
+    B: int = 64  # read slots
+    P: int = 1024  # path budget per read
+    C: int = 1024  # candidate budget per event (pre-dedup children)
+    CE: int = 0  # candidate extension width (>= C; 0 = auto C + C//4)
+    R: int = 256  # seed SA-row budget per event
+    CL: int = 1024  # seed-cluster table capacity
+    seed_len: int = 22
+    min_rep_len: int = 0
+    max_rep_copy: int = 50
+    max_consec_stay: int = 8
+    max_stay_frac: float = 0.5
+    min_seed_prob: float = -3.75
+    min_aln_len: int = 25
+    min_mean_conf: float = 6.0
+    min_top_conf: float = 1.85
+    exact_probs: bool = True
+    # TPU routing flag of the JAX engine, kept so the two EngineParams
+    # accept the same overrides; the port ignores it (on the card every
+    # gather runs on the row_gather kernel, on the CPU on its plain version)
+    mxu: bool = False
+    sampled_sa: bool = False
+    sa_intv: int = 32
+
+    @staticmethod
+    def from_conf(conf: Conf, **over) -> "EngineParams":
+        mp, st, en = conf.mapper, conf.seed_tracker, conf.engine
+        kw = dict(
+            B=en.batch_reads,
+            P=en.max_paths,
+            seed_len=mp.seed_len,
+            min_rep_len=mp.min_rep_len,
+            max_rep_copy=mp.max_rep_copy,
+            max_consec_stay=mp.max_consec_stay,
+            max_stay_frac=mp.max_stay_frac,
+            min_seed_prob=mp.min_seed_prob,
+            min_aln_len=st.min_aln_len,
+            min_mean_conf=st.min_mean_conf,
+            min_top_conf=st.min_top_conf,
+        )
+        kw.update(over)
+        return EngineParams(**kw)
+
+
+def make_state(p: EngineParams, device="cpu"):
+    """Fresh engine state for B empty read slots (the JAX state's keys and
+    dtypes)."""
+    B, P, CL = p.B, p.P, p.CL
+
+    def z(*s):
+        return torch.zeros(s, dtype=I32, device=device)
+
+    def zb(*s):
+        return torch.zeros(s, dtype=torch.bool, device=device)
+
+    return {
+        # path table; p_total = 0 marks an empty slot
+        "p_start": z(B, P),
+        "p_end": z(B, P),
+        "p_kmer": z(B, P),
+        "p_total": z(B, P),
+        "p_consec": z(B, P),
+        "p_moves": z(B, P),
+        "p_sa": zb(B, P),
+        "p_cum": torch.zeros((B, P, p.seed_len + 1), dtype=F32,
+                             device=device),  # cumulative-sum ring
+        # seed-cluster table (cl_count: the length still counts, zombies
+        # included; cl_valid: matchable)
+        "cl_valid": zb(B, CL),
+        "cl_count": zb(B, CL),
+        "cl_ref_st": z(B, CL),
+        "cl_r1": z(B, CL),
+        "cl_r2e": z(B, CL),
+        "cl_evt_st": z(B, CL),
+        "cl_evt_en": z(B, CL),
+        "cl_total": z(B, CL),
+        "len_sum": torch.zeros((B,), dtype=F32, device=device),
+        "n_cl": z(B),
+        "mm_len": z(B),
+        "mm_ref_st": z(B),
+        "mm_r1": z(B),
+        "mm_r2e": z(B),
+        "mm_evt_st": z(B),
+        "mm_evt_en": z(B),
+        "evt_i": z(B),
+        "done": torch.ones((B,), dtype=torch.bool, device=device),
+        "success": zb(B),
+        "dec_evt": z(B),
+        # sticky budget overflow: 1=CL evict, 2=CE flags, 4=C candidates,
+        # 8=P paths, 16=R seed rows
+        "ovf": zb(B),
+        "ovf_why": z(B),
+        # sticky per-read demand maxima (exact until the first cut)
+        "dm_flags": z(B),
+        "dm_valid": z(B),
+        "dm_paths": z(B),
+        "dm_rows": z(B),
+        "dm_cl": z(B),
+    }
+
+
+def reset_rows(state, mask):
+    """Reset read slots where mask[B] is True: fresh (zero) state there, and
+    done=False."""
+    B = mask.shape[0]
+    out = {}
+    for k, v in state.items():
+        m = mask.view((B,) + (1,) * (v.dim() - 1))
+        out[k] = torch.where(m, torch.zeros((), dtype=v.dtype,
+                                            device=v.device), v)
+    out["done"] = state["done"] & ~mask
+    return out
+
+
+# ---------------------------------------------------------------------------
+# classic step helpers
+# ---------------------------------------------------------------------------
+
+def _compact_idx(valid, w_out):
+    """Stable-compaction gather indices: src[j] = index of the j-th True of
+    valid[B, W] (order kept; W-1 past the count), ok[j] = j < count.  The
+    JAX sort of (index if valid else W) moves the True indices to the front
+    in order; here each True index is scattered to its rank."""
+    B, W = valid.shape
+    dev = valid.device
+    rank = torch.cumsum(valid, 1, dtype=I32) - 1
+    tgt = torch.where(valid, rank, W).to(torch.int64)
+    src = torch.full((B, W + 1), W, dtype=I32, device=dev)
+    src.scatter_(1, tgt, torch.arange(W, dtype=I32, device=dev).expand(B, W))
+    skey = src[:, : min(w_out, W)]
+    return skey.clamp(max=W - 1), skey < W
+
+
+def _pack_gather(fields, idx2d, rings=()):
+    """Gather many same-shape [B, W] per-slot fields at idx2d [B, K] with ONE
+    row gather (f32 fields move as their bits, bools as int32); ``rings``
+    are [B, W, k] f32 arrays packed as k extra columns each.  Returns the
+    unpacked fields, then the gathered [B, K, k] rings."""
+    blocks = [
+        (f.view(I32) if f.dtype == F32 else f.to(I32))[:, :, None]
+        for f in fields
+    ] + [r.view(I32) for r in rings]
+    g = row_gather_fields(torch.cat(blocks, 2), idx2d)
+    out = []
+    for f, v in zip(fields, g):
+        if f.dtype == F32:
+            v = v.view(F32)
+        elif f.dtype == torch.bool:
+            v = v != 0
+        out.append(v)
+    at = len(fields)
+    for r in rings:
+        out.append(torch.stack(g[at: at + r.shape[2]], 2).view(F32))
+        at += r.shape[2]
+    return out
+
+
+def _sort_perm(k1, k2, kf):
+    """Row-wise permutation of ``lax.sort((k1, k2, kf, iota), dimension=1,
+    num_keys=4)``: ascending by the int32 keys k1, k2, then the f32 key kf
+    in lax.sort's order, ties in index order.  Two stable passes: kf, then
+    (k1, k2) packed into one int64 key."""
+    o1 = torch.sort(_f32_sort_key(kf), dim=1, stable=True).indices
+    k12 = (k1.to(torch.int64) << 32) + (k2.to(torch.int64) + 2**31)
+    o2 = torch.sort(torch.gather(k12, 1, o1), dim=1, stable=True).indices
+    return torch.gather(o1, 1, o2).to(I32)
+
+
+def _path_seedprob(p: EngineParams, st):
+    """Each live path's seed_prob_ recomputed from the cumulative-sum ring
+    (identical f32 ops to the values stored at child creation)."""
+    SL = p.seed_len
+    RING = SL + 1
+    tot = st["p_total"]
+    cum_now = _ring_read(st["p_cum"], tot % RING)
+    wslot = torch.where(tot >= SL, (tot - SL) % RING, 0)
+    wstart = _ring_read(st["p_cum"], wslot)
+    return torch.where(
+        tot >= SL,
+        (cum_now - wstart) / SL,
+        cum_now / tot.clamp(min=1).to(F32),
+    )
+
+
+# ---------------------------------------------------------------------------
+# per-event step (the batched map_next, mapper.cpp:433-663)
+# ---------------------------------------------------------------------------
+
+def _event_step(idx, p: EngineParams, st, ev, ev_on):
+    from ..ops.tracker_kernel import tracker_run
+
+    dev = ev.device
+    B, P, C, R, SL = p.B, p.P, p.C, p.R, p.seed_len
+    # CE: physical candidate width; the budget C counts only FM-valid
+    # candidates (mapper.cpp:486-510)
+    CE = p.CE if p.CE else C + max(C // 4, 256)
+    CE = min(CE, 5 * P)  # cannot exceed the flag count
+    KMASK = KMER_COUNT - 1
+    KQ = KMER_COUNT // 4
+    PATH_MASK = (1 << SL) - 1
+    TAIL_MOVE = 1 << (SL - 1)
+    RING = SL + 1
+    n = idx["n"]
+    stay_frac_max = f32_const(p.max_stay_frac * SL)
+    min_seed_prob = f32_const(p.min_seed_prob)
+
+    def iota(m):
+        return torch.arange(m, dtype=I32, device=dev)
+
+    def nxt(a, fill):
+        return torch.cat(
+            [a[:, 1:], torch.full((B, 1), fill, dtype=a.dtype, device=dev)], 1
+        )
+
+    alive = (~st["done"]) & ev_on
+    probs = _match_probs(idx, ev, p.exact_probs)  # [B, 1024]
+
+    # ---- candidate flags in creation order (stay, then moves A..T) ----
+    pv = st["p_total"] > 0
+    fmlen = st["p_end"] - st["p_start"] + 1
+    # one F=4 gather of 3P rows: a path's 4 move probs are one row of
+    # probs viewed [B, 256, 4]; the stay prob and the fm-bin threshold are
+    # one lane of such a row (thresholds appended after the prob rows)
+    NT4 = idx["threshes"].shape[0] // 4
+    tbl4 = torch.cat(
+        [probs.reshape(B, KQ, 4),
+         idx["threshes"].reshape(NT4, 4)[None].expand(B, NT4, 4)], 1
+    )
+    fm_bin = _fm_bin(fmlen)
+    allk3 = torch.cat(
+        [st["p_kmer"] >> 2, st["p_kmer"] & (KQ - 1), KQ + (fm_bin >> 2)], 1
+    )
+    g3 = row_gather(tbl4, allk3)  # [B, 3P, 4]
+    # the JAX lane pick is a one-hot sum: a selected -0.0 reads +0.0
+    stay_p = _ring_read(g3[:, :P], st["p_kmer"] & 3)
+    mv_p = g3[:, P: 2 * P]
+    thresh = _ring_read(g3[:, 2 * P:], fm_bin & 3)
+    stay_f = pv & (st["p_consec"] < p.max_consec_stay) & (stay_p >= thresh)
+    # NaN-threshold polarity parity (mapper.cpp:471,489)
+    mv_f = pv[:, :, None] & ~(mv_p < thresh[:, :, None])
+    flags = torch.cat([stay_f[:, :, None], mv_f], 2)  # [B, P, 5]
+
+    # ---- compact to CE candidate slots in creation order ----
+    flat = flags.reshape(B, P * 5)
+    pos = torch.cumsum(flat, 1, dtype=I32) - flat.to(I32)
+    cidx, cval = _compact_idx(flat, CE)
+    cpar = torch.where(cval, torch.div(cidx, 5, rounding_mode="trunc"), P)
+    move = torch.where(cval, cidx % 5, 0)  # 0 = stay, 1..4 = move base+1
+    cpar_g = cpar.clamp(max=P - 1)
+
+    # ---- parent state (two ring slots per parent ride the pack) ----
+    cumnow_p = _ring_read(st["p_cum"], st["p_total"] % RING)
+    wslot_p = torch.where(
+        st["p_total"] + 1 >= SL, (st["p_total"] + 1 - SL) % RING, 0
+    )
+    wstart_p = _ring_read(st["p_cum"], wslot_p)
+    cs, ce, ck, ctot, ccons, cmvs, csa, ccum, cwst = _pack_gather(
+        [st["p_start"], st["p_end"], st["p_kmer"], st["p_total"],
+         st["p_consec"], st["p_moves"], st["p_sa"], cumnow_p, wstart_p],
+        cpar_g,
+    )
+
+    is_mv = move >= 1
+    base = (move - 1).clamp(0, 3)
+    nk = torch.where(is_mv, ((ck << 2) & KMASK) | base, ck)
+    ns_m, ne_m = _extend(idx, cs, ce, base)
+    ns = torch.where(is_mv, ns_m, cs)
+    ne = torch.where(is_mv, ne_m, ce)
+    cv_fm = cval & ((~is_mv) | (ns <= ne))
+    # exact budget: the reference appends only FM-valid candidates and
+    # breaks at max_paths appended (mapper.cpp:455-520)
+    vpos = torch.cumsum(cv_fm, 1, dtype=I32) - cv_fm.to(I32)
+    cvalid = cv_fm & (vpos < C)
+    total_valid_fm = cv_fm.sum(1, dtype=I32)
+
+    prob = row_gather(probs, nk)
+    new_tot = ctot + 1
+    newcum = ccum + prob  # f32, the reference's sums_[l] = sums_[l-1]+prob
+    seedprob = torch.where(
+        new_tot >= SL, (newcum - cwst) / SL, newcum / new_tot.to(F32)
+    )
+    nmoves = ((cmvs << 1) | is_mv.to(I32)) & PATH_MASK
+    nmoves = torch.where(ctot >= SL, nmoves | TAIL_MOVE, nmoves)
+    nconsec = torch.where(is_mv, 0, ccons + 1)
+
+    # ---- ended parents (no budget-kept valid child, reached before the
+    # candidate budget filled; mapper.cpp:455-520) ----
+    k_i = pos[:, ::5]  # compacted position of each parent's stay slot
+    n_flags = pos[:, -1] + flat[:, -1].to(I32)
+    k_next = torch.cat([k_i[:, 1:], n_flags[:, None]], 1)
+    vpos_pad = torch.cat([vpos, total_valid_fm[:, None]], 1)
+    vb2 = row_gather(vpos_pad, torch.cat([k_i, k_next], 1).clamp(max=CE))
+    vb, vb_next = vb2[:, :P], vb2[:, P:]
+    child_any = vb_next.clamp(max=C) > vb.clamp(max=C)
+    reached = (k_i < CE) & (vb < C)
+    pmc = popcount32(st["p_moves"])
+    pseedprob = _path_seedprob(p, st)
+    ended = pv & (~child_any) & (~st["p_sa"]) & reached & alive[:, None]
+    e_rep = (fmlen <= p.max_rep_copy) & (pmc >= p.min_rep_len)
+    e_unique = (
+        (fmlen == 1)
+        & ((st["p_moves"] & 1) == 1)
+        & ((SL - pmc) <= stay_frac_max)
+    )
+    e_valid = (
+        ended
+        & (st["p_total"].clamp(max=SL) == SL)
+        & (pseedprob >= min_seed_prob)
+        & (e_unique | e_rep)
+    )
+    e_rows = torch.where(e_valid, fmlen.clamp(max=p.max_rep_copy), 0)
+
+    # ---- sort candidates by (fm_start, fm_end, seed_prob, creation) ----
+    k1 = torch.where(cvalid, ns, INT32_MAX)
+    k2 = torch.where(cvalid, ne, INT32_MAX)
+    perm = _sort_perm(k1, k2, seedprob)
+    ns_s, ne_s, seedprob_s, nk_s, prob_s, ntot_s, nmoves_s = _pack_gather(
+        [k1, k2, seedprob, nk, prob, new_tot, nmoves], perm
+    )
+    svalid = ns_s != INT32_MAX
+
+    dup = (
+        svalid
+        & nxt(svalid, False)
+        & (ns_s == nxt(ns_s, -1))
+        & (ne_s == nxt(ne_s, -1))
+    )
+
+    # ---- candidate seed validity (non-ended branch of is_seed_valid) ----
+    smc = popcount32(nmoves_s)
+    seed_c = (
+        svalid
+        & (~dup)
+        & (ntot_s >= SL)
+        & (seedprob_s >= min_seed_prob)
+        & ((ne_s - ns_s + 1) == 1)
+        & ((nmoves_s & 1) == 1)
+        & ((SL - smc) <= stay_frac_max)
+    )
+
+    # ---- seed rows: ended groups (parent order) then candidates ----
+    g_st = torch.cat([st["p_start"], ns_s], 1)  # [B, P+CE]
+    g_rows = torch.cat([e_rows, seed_c.to(I32)], 1)
+    g_mc = torch.cat([pmc, smc], 1)
+    g_evt = torch.cat(
+        [(st["evt_i"] - 1)[:, None].expand(B, P),
+         st["evt_i"][:, None].expand(B, CE)], 1
+    )
+    g_cum = torch.cumsum(g_rows, 1, dtype=I32)
+    total_rows = g_cum[:, -1]
+    row_ids = iota(R)
+    # grp[b, r] = #{g_cum[b] <= r} (the JAX compare-count; g_cum is sorted)
+    grp = torch.searchsorted(
+        g_cum, row_ids[None, :].expand(B, R).contiguous(), right=True,
+        out_int32=True,
+    ).clamp(max=P + CE - 1)
+    row_ok = (row_ids[None, :] < total_rows[:, None]) & alive[:, None]
+    g_cum_prev, g_st_g, row_mc, row_evt = _pack_gather(
+        [torch.cat([torch.zeros((B, 1), dtype=I32, device=dev),
+                    g_cum[:, :-1]], 1), g_st, g_mc, g_evt],
+        grp,
+    )
+    sa_row = (g_st_g + (row_ids[None, :] - g_cum_prev)).clamp(0, n)
+    if p.sampled_sa:
+        raise NotImplementedError("sampled_sa is not ported yet")
+    ref_en = n - idx["sa"].index_select(0, sa_row.reshape(-1)).reshape(B, R)
+
+    # the row fold: each read's rows r < total_rows in order (rows_r = 0
+    # for reads that do not advance)
+    tstate = tracker_run(
+        p.min_aln_len, {k: st[k] for k in TRACKER_KEYS}, ref_en, row_mc,
+        row_evt, row_ok, torch.where(alive, total_rows, 0),
+    )
+
+    # ---- sources (mapper.cpp:544-624) ----
+    source_prob = idx["threshes"][0]
+    kpass = prob_s >= source_prob
+    prev_k = torch.cat(
+        [torch.full((B, 1), -1, dtype=I32, device=dev), nk_s[:, :-1]], 1
+    )
+    first_seg = svalid & (nk_s != prev_k)
+    seg_id = torch.cumsum(first_seg, 1, dtype=I32)
+    run_end = _seg_running_max(seg_id, ne_s, dim=1)
+
+    km_rng = shared_gather(idx["kmer_rng2"], nk_s)  # [B, CE, 2]
+    km_st = km_rng[:, :, 0]
+    km_en = km_rng[:, :, 1]
+    head_st = km_st
+    head_en = ns_s - 1
+    head_v = first_seg & kpass & (head_st <= head_en)
+
+    nxt_same = nxt(svalid, False) & (nxt(nk_s, -1) == nk_s)
+    gap_st = run_end + 1
+    gap_en = torch.where(nxt_same, nxt(ns_s, 0) - 1, km_en)
+    gap_v = svalid & (~dup) & kpass & (gap_st <= gap_en)
+
+    # presence of a k-mer among the candidates: a scatter of cvalid into a
+    # [B, 1024] bitmap (an OR, so order does not matter; the JAX step's
+    # broadcast compare-any over [B, CE, 1024] is the same function)
+    hit = cvalid & (nk >= 0) & (nk < KMER_COUNT)
+    present = torch.zeros((B, KMER_COUNT + 1), dtype=torch.bool, device=dev)
+    present.scatter_(1, torch.where(hit, nk, KMER_COUNT).to(torch.int64),
+                     torch.ones_like(hit))
+    present = present[:, :KMER_COUNT]
+    full_v = (
+        (~present)
+        & (probs >= source_prob)
+        & (idx["kmer_st"] <= idx["kmer_en"])[None, :]
+    )
+
+    # ---- assemble the new path table in the reference's creation order:
+    # children (sorted, deduped), head/gap sources interleaved, full
+    # sources; source slots start at n_cands (the reference's
+    # budget_left() counts all sorted candidates, dups included) ----
+    child_keep = svalid & (~dup)
+    n_cands = svalid.sum(1, dtype=I32)
+    hg_v = torch.stack([head_v, gap_v], 2).reshape(B, 2 * CE)
+    src_concat = torch.cat([hg_v, full_v], 1)
+
+    def inter(h, g):
+        return torch.stack([h, g.expand_as(h)], 2).reshape(B, 2 * CE)
+
+    def bc(a):
+        return a[None, :].expand(B, KMER_COUNT).to(I32)
+
+    src_start = torch.cat([inter(head_st, gap_st), bc(idx["kmer_st"])], 1)
+    src_end = torch.cat([inter(head_en, gap_en), bc(idx["kmer_en"])], 1)
+    src_kmer = torch.cat([inter(nk_s, nk_s), bc(iota(KMER_COUNT))], 1)
+    src_prob = torch.cat([inter(prob_s, prob_s), probs], 1)
+
+    # merge children + sources by gather: slot j holds child j
+    # (j < n_nondup) or source j - n_cands
+    child_src, child_ok = _compact_idx(child_keep, P)
+    src_src, src_ok = _compact_idx(src_concat, P)
+    out_j = iota(P)[None, :]
+    as_child = child_ok
+    k_src = (out_j - n_cands[:, None]).clamp(0, P - 1)
+    src_of, src_hit = _pack_gather([src_src, src_ok], k_src)
+    src_okj = src_hit & (out_j >= n_cands[:, None])
+    # child fields in two hops: sorted-order fields by child_src, then
+    # candidate-order fields by the composed index ci = perm[child_src]
+    c_start, c_end, c_kmer, c_tot, c_mvs, c_seedc, ci = _pack_gather(
+        [ns_s, ne_s, nk_s, ntot_s, nmoves_s, seed_c, perm], child_src
+    )
+    c_cons, c_sa0, c_newcum, c_par = _pack_gather(
+        [nconsec, csa, newcum, cpar_g], ci
+    )
+    c_sa = c_sa0 | c_seedc
+    (child_ring0,) = _pack_gather([], c_par, rings=[st["p_cum"]])
+    ring_iota = iota(RING)[None, None, :]
+    child_ring = torch.where(
+        ring_iota == (c_tot % RING)[:, :, None], c_newcum[:, :, None],
+        child_ring0,
+    )
+    s_start, s_end, s_kmer, s_prob = _pack_gather(
+        [src_start, src_end, src_kmer, src_prob], src_of
+    )
+    # a source's ring is zeros with slot 1 = prob, built as the JAX step
+    # builds it: (lane == 1) * prob, so the other lanes read 0 * prob
+    src_ring = (ring_iota == 1).to(F32) * torch.where(
+        src_okj, s_prob, 0.0
+    )[:, :, None]
+    new_paths = {
+        "p_start": torch.where(as_child, c_start,
+                               torch.where(src_okj, s_start, 0)),
+        "p_end": torch.where(as_child, c_end, torch.where(src_okj, s_end, -1)),
+        "p_kmer": torch.where(as_child, c_kmer,
+                              torch.where(src_okj, s_kmer, 0)),
+        "p_total": torch.where(as_child, c_tot, src_okj.to(I32)),
+        "p_consec": torch.where(as_child, c_cons, 0),
+        "p_moves": torch.where(as_child, c_mvs, src_okj.to(I32)),
+        "p_sa": as_child & c_sa,
+        "p_cum": torch.where(as_child[:, :, None], child_ring, src_ring),
+    }
+
+    # ---- merge, decide, advance lifecycle ----
+    out = dict(st)
+    for part in (new_paths, tstate):
+        for k, v in part.items():
+            m = alive.view((B,) + (1,) * (v.dim() - 1))
+            out[k] = torch.where(m, v, st[k])
+
+    # budget-overflow detection: any event where a fixed width cut work
+    # the reference's loop would do (no flag: the result provably equals
+    # the wide engine's)
+    n_src = src_concat.sum(1, dtype=I32)
+    cut_flags = n_flags > CE
+    cut_valid = total_valid_fm > C
+    cut_paths = (n_cands + n_src) > P
+    cut_rows = total_rows > R
+    out["ovf"] = out["ovf"] | (
+        (cut_flags | cut_valid | cut_paths | cut_rows) & alive
+    )
+    why = (
+        cut_flags.to(I32) * 2 | cut_valid.to(I32) * 4
+        | cut_paths.to(I32) * 8 | cut_rows.to(I32) * 16
+    )
+    out["ovf_why"] = out["ovf_why"] | torch.where(alive, why, 0)
+
+    def upd(cur, v):
+        return torch.maximum(cur, torch.where(alive, v, 0))
+
+    out["dm_flags"] = upd(st["dm_flags"], n_flags)
+    out["dm_valid"] = upd(st["dm_valid"], total_valid_fm)
+    out["dm_paths"] = upd(st["dm_paths"], n_cands + n_src)
+    out["dm_rows"] = upd(st["dm_rows"], total_rows)
+    out["dm_cl"] = upd(st["dm_cl"], out["n_cl"])
+
+    dec = _tracker_decide(p, out) & alive
+    out["done"] = st["done"] | dec
+    out["success"] = st["success"] | dec
+    out["dec_evt"] = torch.where(dec, st["evt_i"], st["dec_evt"])
+    out["evt_i"] = st["evt_i"] + alive.to(I32)
+    return out
+
+
+def advance_block(idx, p: EngineParams, state, means, on, debug=False):
+    """Advance all read slots through T events: means/on are [B, T]; on[b, t]
+    marks a real event for slot b at step t."""
+    if debug:
+        raise NotImplementedError(
+            "the per-event debug taps (debug.py) are not ported yet"
+        )
+    for t in range(means.shape[1]):
+        state = _event_step(idx, p, state, means[:, t], on[:, t])
+    return state
+
+
+class MapEngine:
+    """Host wrapper of the classic engine with the JAX MapEngine's
+    interface (BatchMapper's engine), on ``device`` (default: the CUDA
+    card).
+
+        eng = MapEngine(fmi, model, threshes, conf)
+        state = eng.fresh_state()
+        state = eng.advance(state, means, on)   # [B, T] f32 / bool
+        host  = eng.readout(state)              # numpy dict
+    """
+
+    READOUT_KEYS = READOUT_KEYS
+
+    def __init__(self, fmi, model, threshes, conf: Conf | None = None,
+                 device=None, **over):
+        self.device = resolve(device)
+        self.conf = conf or Conf()
+        self.params = p = EngineParams.from_conf(self.conf, **over)
+        self.fmi = fmi
+        self.model = model
+        self.idx = device_index(
+            fmi, threshes, model, device=self.device,
+            sampled_sa=p.sampled_sa, sa_intv=p.sa_intv,
+        )
+
+    def fresh_state(self):
+        return make_state(self.params, self.device)
+
+    def reset_slots(self, state, mask):
+        return reset_rows(
+            state, torch.as_tensor(np.asarray(mask, bool), device=self.device)
+        )
+
+    def advance(self, state, means, on):
+        means = torch.as_tensor(np.asarray(means, np.float32),
+                                device=self.device)
+        on = torch.as_tensor(np.asarray(on, bool), device=self.device)
+        return advance_block(self.idx, self.params, state, means, on)
+
+    def readout_start(self, state):
+        return readout_start(state, self.READOUT_KEYS)
+
+    def readout_get(self, packed):
+        return readout_get(packed, self.READOUT_KEYS)
+
+    def readout(self, state):
+        return self.readout_get(self.readout_start(state))

@@ -38,9 +38,11 @@ from .engine import (
     READOUT_KEYS,
     TRACKER_KEYS,
     _extend,
+    _f32_sort_key,
     _fm_bin,
     _match_probs,
     _ring_read,
+    _seg_running_max,
     _tracker_decide,
     device_index,
     f32_const,
@@ -226,17 +228,6 @@ def _excl(x):
     return ex, torch.cat([ex, c[-1:]])
 
 
-def _f32_sort_key(x):
-    """int32 key reproducing lax.sort's f32 order exactly: monotone
-    sign-magnitude flip, +/-0 equal (key 0), every NaN equal and largest
-    (key INT32_MAX): -inf < finite (-0 == +0) < +inf < nan."""
-    i = x.view(I32)
-    mono = i ^ torch.where(i < 0, INT32_MAX, 0).to(I32)
-    return torch.where(
-        torch.isnan(x), INT32_MAX, torch.where(x == 0, 0, mono)
-    ).to(I32)
-
-
 def _f32_from_sort_key(k):
     """Inverse of the monotone part of :func:`_f32_sort_key`."""
     return (k ^ torch.where(k < 0, INT32_MAX, 0).to(I32)).view(F32)
@@ -258,15 +249,6 @@ def _sort1d(keys, payloads=(), num_keys=None):
         order = torch.sort(kk, stable=True).indices
         perm = order if perm is None else perm.index_select(0, order)
     return tuple(a.index_select(0, perm) for a in (*keys, *payloads))
-
-
-def _seg_running_max(seg_id, vals):
-    """Running max within contiguous segments of a non-decreasing int32
-    ``seg_id``: out[i] = max(vals[j] for j <= i, seg_id[j] == seg_id[i]).
-    One int64 cummax of (seg_id, vals + 2^31) — exact."""
-    key = (seg_id.to(torch.int64) << 32) | (vals.to(torch.int64) + 2**31)
-    run = torch.cummax(key, 0).values
-    return ((run & 0xFFFFFFFF) - 2**31).to(I32)
 
 
 def _flat_take(tbl, idx):

@@ -39,6 +39,8 @@ _FUNCS = {
     "pair_counts_i32": ("flat_gather", "ppiiip"),
     "ring_assemble_i32": ("stepkern", "ppppppii"),
     "tracker_fold_compact": ("tracker_kernel", "aiiii"),
+    "tracker_fold_rows": ("tracker_kernel", "aiiii"),
+    "row_gather_i32": ("row_gather", "piiipiip"),
 }
 
 COUNTS = {
@@ -46,6 +48,8 @@ COUNTS = {
     "pair_counts": 0,
     "ring_assemble": 0,
     "tracker_fold": 0,
+    "tracker_fold_rows": 0,
+    "row_gather": 0,
 }
 
 _libs: dict = {}
