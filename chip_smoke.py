@@ -11,16 +11,21 @@ verdict, printed only when every phase passed):
    and the build of every kernel from ``uncalled_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version on the card, on seeded
    inputs at the main paths' full shapes (pooled: B=256, S=98304,
-   SC=122880, CL=2048, RT=6144, RING=23; classic: the row gathers of the
-   B=64 rung and the final rung, the row fold at B=64/CL=1024/R=256 and
-   B=32/CL=4096/R=1024): bits must be equal; kernel, plain and (where one
-   PyTorch call computes the same function) library device times;
+   SC=122880, CL=2048, RT=6144, RING=23, the bitonic merge levels of the
+   candidate sort at NP=131072 and the wide tier's NP=32768; classic: the
+   row gathers of the B=64 rung and the final rung, the row fold at
+   B=64/CL=1024/R=256 and B=32/CL=4096/R=1024): bits must be equal;
+   kernel, plain and (where one PyTorch call computes the same function)
+   library device times; the whole bitonic sort against the flat sort;
 3. the 14 golden reads on the example index through ``BatchMapper``, on
    the pooled engine and on the classic engine: every PAF line
    byte-identical to ``tests/fixtures/golden_pafs.json``, with every
    kernel of the path launched; a pooled eject tier, a narrow classic
    remap ladder, and pooled tiers that chain to the classic final rung
-   each give the golden lines;
+   each give the golden lines; so do the conf defaults' paths, each
+   shown to have run: the slot handoff (B=2), handoff with the tail-mode
+   disarm, the drain chain and the bitonic merge levels (B=8), the drain
+   by migration, and the classic entry's drain by restart;
 4. pooled at real size: a 4.7 Mb repeat-bearing genome, its index and
    thresholds built here, 8 warm-up + 512 timed simulated reads at B=256
    (reads/s, ms per event step, mapped/correct fractions, ejects per tier,
@@ -33,6 +38,13 @@ verdict, printed only when every phase passed):
    same measures plus reads per ladder rung and a profiled block on every
    rung that ran, and the same re-check of captured kernel inputs; every
    read is yielded;
+6. pooled at the conf defaults (slot handoff, drain chain, bitonic sort)
+   on phase 4's reads at B=256, T=32: reads/s, ms per step, slot
+   utilisation over every mapper of the chain, handoffs, migrations, the
+   drain widths, ejects per tier, launches per kernel per step, peak
+   memory, a profiled block; the first step's merge-level inputs are
+   re-checked against the plain version; every read is yielded, with the
+   very line phase 4 gave it;
 
 then the ``{"kernels": [...]}`` line and the verdict.
 
@@ -61,10 +73,13 @@ S_FULL = B_FULL * SPR  # 98304
 SC_FULL = S_FULL + S_FULL // 4  # 122880
 RT_FULL = 24 * B_FULL  # 6144
 RING = 23
-N_POOLED, N_CLASSIC = 512, 256  # timed reads of phases 4 and 5
+N_POOLED, N_CLASSIC = 512, 256  # timed reads of phases 4 (and 6) and 5
 POOLED_KERNELS = ("flat_gather", "pair_counts", "ring_assemble",
                   "tracker_fold")
 CLASSIC_KERNELS = ("row_gather", "tracker_fold_rows")
+# the pooled path at the conf defaults (phase 6) adds the bitonic sort's
+DEFAULT_KERNELS = POOLED_KERNELS + ("merge_level",)
+NK_SORT = 5  # the step's candidate sort keys
 
 KERNELS = {
     "flat_gather": dict(
@@ -85,8 +100,12 @@ KERNELS = {
     "tracker_fold_rows": dict(
         route="cuda", source="uncalled_tpu_torch/csrc/tracker_kernel.cu",
         replaces="uncalled_tpu/ops/tracker_kernel.py:190"),
+    "merge_level": dict(
+        route="cuda", source="uncalled_tpu_torch/csrc/sortkern.cu",
+        replaces="uncalled_tpu/ops/sortkern.py:69"),
 }
-STEMS = ("flat_gather", "row_gather", "stepkern", "tracker_kernel")
+STEMS = ("flat_gather", "row_gather", "sortkern", "stepkern",
+         "tracker_kernel")
 
 
 def log(*a):
@@ -158,18 +177,32 @@ def device_ms(fn, reps=20, tag="call"):
     """Device milliseconds per call of ``fn()`` (the sum of its kernels,
     memsets and copies, from the profiler trace over ``reps`` calls) —
     the card's own time, free of the host's issue time that CUDA events
-    around a short call also catch."""
+    around a short call also catch.  A profiler trace now and then loses
+    some or all of its device events, so traces are taken until three
+    hold the largest event count seen (at most six), and the median over
+    the traces that hold it is returned; it raises when every trace came
+    back empty."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    evs = trace_events(prof, tag)
-    return sum(float(e.get("dur", 0)) for e in evs) / 1e3 / reps
+    runs = []  # (device events, ms per call) per trace
+    for _ in range(6):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = trace_events(prof, tag)
+        runs.append((len(evs),
+                     sum(float(e.get("dur", 0)) for e in evs) / 1e3 / reps))
+        n_max = max(n for n, _ in runs)
+        full = [ms for n, ms in runs if n == n_max]
+        if n_max and len(full) >= 3:
+            break
+    if not n_max:
+        raise RuntimeError(f"{tag}: the profiler recorded no device activity")
+    return float(np.median(full))
 
 
 # ---------------------------------------------------------------------------
@@ -257,6 +290,17 @@ def tracker_case(rng, dev, B=B_FULL, CL=CL_FULL, RT=RT_FULL):
     evt = rng.integers(0, 130, RT)
     t = lambda a: torch.from_numpy(np.asarray(a, np.int32)).to(dev)  # noqa
     return st, t(ren), t(mc), t(evt), t(st_w), t(rows)
+
+
+def sort_keys_case(rng, dev, n):
+    """Step-like candidate sort keys at n slots, tie-heavy: read (few
+    values, INT32-max-free), start, end, a seed-probability sort key with
+    few values, and the creation index."""
+    import torch
+
+    ks = [rng.integers(0, B_FULL + 1, n), rng.integers(0, 40, n),
+          rng.integers(0, 40, n), rng.integers(-3, 3, n), np.arange(n)]
+    return [torch.from_numpy(k.astype(np.int32)).to(dev) for k in ks]
 
 
 def row_gather_case(rng, dev, B, N, F, K, f32=False):
@@ -510,7 +554,52 @@ def phase_kernels(out, rate):
                          lambda targs=targs: tk.tracker_run_plain(*targs),
                          None, nbytes=2 * tb + nrows * 13 + B * 4,
                          plain_reps=3, shape=f"{label} rows={nrows}")
+    ok &= phase_merge(out, rate, rng, dev)
     return ok
+
+
+def phase_merge(out, rate, rng, dev):
+    """The bitonic merge level at the step's candidate-sort shapes (NK=5
+    keys of NP=131072 at SC=122880: levels 16384 and 32768 at C=128,
+    65536 and 131072 at C=1024; the wide tier's NP=32768), then the whole
+    bitonic sort against the flat sort."""
+    import torch
+
+    from uncalled_tpu_torch.mapping import pooled as pm
+    from uncalled_tpu_torch.ops import sortkern as sk
+
+    res = out["kernels"]
+    ok = True
+    for NP, levels in ((131072, ((16384, 128), (32768, 128), (65536, 1024),
+                                 (131072, 1024))),
+                       (32768, ((16384, 128), (32768, 128)))):
+        ks = sort_keys_case(rng, dev, NP)
+        for k_lv, C in levels:
+            label = f"NP={NP} k_lv={k_lv} C={C}"
+            head = (NP, k_lv) == (131072, 16384)
+            ok &= report(
+                res if head else out["kernel_shapes"], "merge_level",
+                sk.merge_level(ks, k_lv, C), sk.merge_level_plain(ks, k_lv, C),
+                rate, lambda ks=ks, k_lv=k_lv, C=C: sk.merge_level(ks, k_lv, C),
+                lambda ks=ks, k_lv=k_lv, C=C: sk.merge_level_plain(ks, k_lv,
+                                                                   C),
+                None, nbytes=2 * NK_SORT * NP * 4,
+                key=None if head else f"merge_level[{label}]",
+                shape=f"NK={NK_SORT} {label}")
+    # the whole candidate sort at SC: bitonic (four merge levels) vs flat
+    ks = sort_keys_case(rng, dev, SC_FULL)
+    bit = pm._sort1d_bitonic(ks)
+    flat = pm._sort1d(ks)
+    eq = check("sort1d_bitonic vs flat sort", bit, flat)
+    out["sort_compare"] = dict(
+        n=SC_FULL, equal=eq,
+        bitonic_ms=device_ms(lambda: pm._sort1d_bitonic(ks), tag="bitonic"),
+        flat_ms=device_ms(lambda: pm._sort1d(ks), tag="flat_sort"),
+        bitonic_call_ms=time_ms(lambda: pm._sort1d_bitonic(ks)),
+        flat_call_ms=time_ms(lambda: pm._sort1d(ks)),
+    )
+    log("[2] whole sort at SC=122880: " + json.dumps(out["sort_compare"]))
+    return ok and eq
 
 
 def check(name, got, want) -> bool:
@@ -555,6 +644,8 @@ class _Read:
 
 
 def _conf(B, spr, T, pooled=True):
+    """The configurations of phases 3-5 before the conf defaults ran:
+    handoff and drain off."""
     from uncalled_tpu_torch.config import Conf
 
     conf = Conf()
@@ -581,7 +672,8 @@ def phase_golden(out):
     with open(os.path.join(fx, "golden_pafs.json")) as f:
         golden = json.load(f)
     sigs = np.load(os.path.join(fx, "golden_reads.npz"), allow_pickle=True)
-    bm = BatchMapper(fmi, load_default(), th, _conf(4, 512, 64))
+    bm = BatchMapper(fmi, load_default(), th, _conf(4, 512, 64),
+                     sort_mode="flat")
     reads = [_Read(r, sigs[r]) for r in golden]
     _cuda.reset_counts()
     t0 = time.time()
@@ -601,7 +693,8 @@ def phase_golden(out):
     rid = "sim_0000_Escherichia_coli_3854_+"
     conf = _conf(2, 512, 64)
     conf.engine.remap_ladder = ((1024, 2, 128, 256, 0),)
-    bm = BatchMapper(fmi, load_default(), th, conf, S=128, SC=160)
+    bm = BatchMapper(fmi, load_default(), th, conf, S=128, SC=160,
+                     sort_mode="flat")
     got = {p.rd_name: p.to_line()
            for p in bm.map_reads([_Read(rid, sigs[rid])])}
     tiers = bm.tiers()
@@ -612,7 +705,119 @@ def phase_golden(out):
         f"(B, S, CL) {shapes}, golden line "
         f"{'identical' if tier_ok else 'MISMATCH'}")
     classic_ok = phase_golden_classic(out, fmi, th, golden, sigs)
-    return ok and tier_ok and classic_ok
+    defaults_ok = phase_golden_defaults(out, fmi, th, golden, sigs)
+    return ok and tier_ok and classic_ok and defaults_ok
+
+
+def _chain(bm):
+    """A mapper and every mapper built below it: its drains and eject
+    tiers, and theirs."""
+    out, todo = [], [bm]
+    while todo:
+        m = todo.pop(0)
+        if m is not None and all(m is not x for x in out):
+            out.append(m)
+            todo += [m._drain_mapper, m._next_mapper]
+    return out
+
+
+def _drains(bm):
+    """B of the mapper and of each drain in its drain chain."""
+    out = []
+    while bm is not None:
+        out.append(bm.eng.params.B)
+        bm = bm._drain_mapper
+    return out
+
+
+def phase_golden_defaults(out, fmi, th, golden, sigs):
+    """The golden reads through the conf defaults' paths: the slot handoff,
+    the drain chain by migration (pooled) and by restart (classic), and
+    the bitonic sort at a pool size where its merge levels launch."""
+    from uncalled_tpu_torch.config import Conf
+    from uncalled_tpu_torch.mapping.batch import BatchMapper
+    from uncalled_tpu_torch.mapping.engine import MapEngine
+    from uncalled_tpu_torch.mapping.pooled import PooledEngine
+    from uncalled_tpu_torch.ops import _cuda
+    from uncalled_tpu_torch.poremodel import load_default
+
+    model = load_default()
+    res = out["golden_defaults"] = {}
+
+    def run(name, conf, rids, cond, **over):
+        bm = BatchMapper(fmi, model, th, conf, **over)
+        migrated = []
+        if isinstance(bm.eng, PooledEngine):
+            orig = bm.eng.migrate
+
+            def migrate(state, sel, dst):
+                migrated.append(int((np.asarray(sel) >= 0).sum()))
+                return orig(state, sel, dst)
+
+            bm.eng.migrate = migrate
+        _cuda.reset_counts()
+        t0 = time.time()
+        got = {p.rd_name: p.to_line()
+               for p in bm.map_reads([_Read(r, sigs[r]) for r in rids])}
+        dt = time.time() - t0
+        counts = dict(_cuda.COUNTS)
+        chain = _chain(bm)
+        bad = [r for r in rids if got.get(r) != golden[r]]
+        info = dict(
+            seconds=dt, reads=len(rids), yielded=len(got), bad=bad,
+            engine=type(bm.eng).__name__,
+            sort_mode=getattr(bm.eng.params, "sort_mode", None),
+            handoff=getattr(bm.eng.params, "handoff", False),
+            n_handoff=sum(m.n_handoff for m in chain),
+            n_migrate=bm.n_migrate, migrated_reads=migrated,
+            drains=_drains(bm), launches=counts)
+        passed = (not bad and len(got) == len(rids)
+                  and cond(bm, info, counts))
+        res[name] = dict(info, ok=passed)
+        log(f"[3] defaults/{name}: {len(rids) - len(bad)}/{len(rids)} lines "
+            f"byte-identical, {'ok' if passed else 'FAILED'}: "
+            + json.dumps(info))
+        return passed
+
+    def conf_of(B, spr=None, T=None, pooled=True):
+        conf = Conf()
+        conf.engine.batch_reads = B
+        conf.engine.pooled = pooled
+        if spr:
+            conf.engine.pool_slots_per_read = spr
+        if T:
+            conf.engine.evt_block = T
+        return conf
+
+    ok = True
+    allr = list(golden)
+    # Conf() at B=2: too narrow to drain; decided slots switch on the card
+    ok &= run("handoff B=2", conf_of(2), allr,
+              lambda bm, i, c: (i["handoff"] and i["n_handoff"] > 0
+                                and i["sort_mode"] == "bitonic"
+                                and all(c[k] > 0 for k in POOLED_KERNELS)))
+    # B=8 at 2048 slots per read (SC=20480, NP=32768: two merge levels per
+    # step): handoff, tail-mode disarm, the drain chain, bitonic merges.
+    # The 12 reads that decide: the two that never do add ~100 s of drain
+    # tail here and run through the handoff at B=2 above.
+    ok &= run("handoff+drain+bitonic B=8", conf_of(8, 2048),
+              [r for r in allr if r.startswith("sim_")],
+              lambda bm, i, c: (i["n_handoff"] > 0 and len(i["drains"]) > 1
+                                and c["merge_level"] > 0))
+    # drain by migration (tests/test_pooled.py): B=8 drains at this scale
+    conf = conf_of(8, 512, 16)
+    conf.engine.drain_min_batch = 8
+    ok &= run("drain by migration B=8", conf, allr[:10],
+              lambda bm, i, c: (i["n_migrate"] > 0 and i["migrated_reads"]
+                                and isinstance(bm._drain_mapper.eng,
+                                               PooledEngine)))
+    # the classic entry drains by restart (tests/test_engine.py)
+    ok &= run("classic drain by restart B=64", conf_of(64, pooled=False),
+              ["sim_0000_Escherichia_coli_3854_+",
+               "sim_0003_Escherichia_coli_6188_-"],
+              lambda bm, i, c: (isinstance(bm.eng, MapEngine)
+                                and i["drains"][:2] == [64, 32]))
+    return ok
 
 
 def _rungs(bm):
@@ -684,7 +889,7 @@ def phase_golden_classic(out, fmi, th, golden, sigs):
     conf.engine.pool_wide = (96, 256)
     conf.engine.pool_max = (112, 256)
     conf.engine.remap_ladder = ((1024, 2, 128, 256, 0),)
-    bm = BatchMapper(fmi, model, th, conf, S=128, SC=160)
+    bm = BatchMapper(fmi, model, th, conf, S=128, SC=160, sort_mode="flat")
     got = {p.rd_name: p.to_line()
            for p in bm.map_reads([_Read(rid, sigs[rid])])}
     rungs = _rungs(bm)
@@ -756,7 +961,7 @@ def phase_real(out, rate):
     fmi, th, sim = real_assets()
     model = load_default()
     conf = _conf(B_FULL, SPR, 32)
-    bm = BatchMapper(fmi, model, th, conf)
+    bm = BatchMapper(fmi, model, th, conf, sort_mode="flat")
     p = bm.eng.params
     log(f"[4] shapes B={p.B} S={p.S} SC={p.SC} CL={p.CL} R={p.R} RE={p.RE} "
         f"RT={p.RT} FS={p.FS} T={bm.T}")
@@ -858,6 +1063,7 @@ def phase_real(out, rate):
         pool_hw=[int(x) for x in bm2.pool_hw],
     )
     out["real"] = real
+    out["real_lines"] = {pf.rd_name: pf.to_line() for pf in pafs}
     log("[4] real: " + json.dumps(real))
     out["profile"] = profile_block(bm2, timed)
     log("[4] profile: " + json.dumps(out["profile"]))
@@ -999,6 +1205,123 @@ def phase_classic(out):
     return ok
 
 
+def phase_defaults(out):
+    """The pooled path at the conf defaults (slot handoff, drain chain,
+    bitonic candidate sort) on phase 4's genome and reads at B=256, T=32;
+    every timed read's PAF line must equal phase 4's."""
+    import torch
+
+    import uncalled_tpu_torch.mapping.pooled as pooled
+    from uncalled_tpu_torch.config import Conf
+    from uncalled_tpu_torch.mapping.batch import BatchMapper
+    from uncalled_tpu_torch.ops import _cuda
+    from uncalled_tpu_torch.ops import sortkern as sk
+    from uncalled_tpu_torch.poremodel import load_default
+
+    lines4 = out.get("real_lines")
+    if not lines4:
+        log("[6] needs phase 4's lines (run phases 4 and 6 together)")
+        return False
+    fmi, th, sim = real_assets()
+    model = load_default()
+    conf = Conf()
+    conf.engine.batch_reads = B_FULL
+    conf.engine.pool_slots_per_read = SPR
+    conf.engine.evt_block = 32
+    bm = BatchMapper(fmi, model, th, conf)
+    p = bm.eng.params
+    log(f"[6] shapes B={p.B} S={p.S} SC={p.SC} CL={p.CL} T={bm.T} "
+        f"handoff={p.handoff} sort_mode={p.sort_mode} drain_shrink="
+        f"{conf.engine.drain_shrink}")
+    ok = p.handoff and p.sort_mode == "bitonic" and conf.engine.drain_shrink
+    warm = [_Read(r.id, r.signal) for r in sim[:8]]
+    t0 = time.time()
+    n_warm = sum(1 for _ in bm.map_reads(warm))
+    log(f"[6] warm-up: {n_warm} reads in {time.time() - t0:.2f} s")
+
+    # the timed run; the first step's merge-level inputs are captured
+    captured = []
+    orig = pooled.merge_level
+
+    def cap(ks, k_lv, C):
+        if len(captured) < 4 and ks[0].shape[0] == 131072:
+            captured.append(([k.clone() for k in ks], k_lv, C))
+        return orig(ks, k_lv, C)
+
+    truth = {r.id: (r.ref_name, r.ref_start, r.ref_end, r.fwd) for r in sim}
+    timed = [_Read(r.id, r.signal) for r in sim[8:]]
+    bm2 = BatchMapper(fmi, model, th, conf, engine=bm.eng)
+    pooled.merge_level = cap
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _cuda.reset_counts()
+    t0 = time.time()
+    try:
+        pafs = list(bm2.map_reads(timed))
+        torch.cuda.synchronize()
+    finally:
+        pooled.merge_level = orig
+    dt = time.time() - t0
+    counts = dict(_cuda.COUNTS)
+    chain = _chain(bm2)
+    steps = sum(m.disp_events // m.eng.params.B for m in chain)
+    disp = sum(m.disp_events for m in chain)
+    useful = sum(m.useful_events for m in chain)
+    n_mapped = sum(1 for pf in pafs if pf.is_mapped)
+    n_correct = sum(
+        1 for pf in pafs if pf.is_mapped and pf.rf_name == truth[pf.rd_name][0]
+        and truth[pf.rd_name][1] - 500 <= pf.rf_st <= truth[pf.rd_name][2] + 500
+        and pf.fwd == truth[pf.rd_name][3]
+    )
+    differ = [pf.rd_name for pf in pafs
+              if lines4.get(pf.rd_name) != pf.to_line()]
+    real = dict(
+        reads=len(timed), yielded=len(pafs),
+        lines_equal_phase4=len(pafs) - len(differ), seconds=dt,
+        reads_per_s=len(timed) / dt, steps=steps,
+        steps_entry=bm2.disp_events // B_FULL,
+        ms_per_step=dt * 1e3 / max(steps, 1),
+        mapped_frac=n_mapped / len(timed), correct_frac=n_correct / len(timed),
+        slot_utilisation=useful / max(disp, 1),
+        n_handoff=sum(m.n_handoff for m in chain),
+        n_migrate=sum(m.n_migrate for m in chain),
+        t_migrate=sum(m.t_migrate for m in chain),
+        t_refill=sum(m.t_refill for m in chain),
+        drain_widths=_drains(bm2),
+        mappers=[dict(B=m.eng.params.B, T=m.T, pool_tier=m._pool_tier,
+                      steps=m.disp_events // m.eng.params.B,
+                      useful_frac=m.useful_events / max(m.disp_events, 1),
+                      n_handoff=m.n_handoff, harvested=len(m.demand))
+                 for m in chain],
+        ejects_per_tier=[m.n_ejected for m in bm2.tiers()],
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=counts,
+        launches_per_step={k: v / max(steps, 1) for k, v in counts.items()},
+        pool_hw=[int(x) for x in bm2.pool_hw],
+    )
+    out["defaults"] = real
+    log("[6] defaults: " + json.dumps(real))
+    for r in differ[:5]:
+        log(f"[6]   {r}: {lines4.get(r)!r} (phase 4) vs this run's line")
+    for i, (ks, k_lv, C) in enumerate(captured):
+        got, want = sk.merge_level(ks, k_lv, C), sk.merge_level_plain(ks, k_lv,
+                                                                        C)
+        torch.cuda.synchronize()
+        eq = same_bits(got, want)
+        ok &= eq
+        log(f"[6] captured merge_level#{i} (k_lv={k_lv}, C={C}): "
+            f"{'bit-equal' if eq else 'MISMATCH'}")
+    ok &= len(captured) == 4
+    out["defaults_profile"] = profile_block(bm2, timed)
+    log("[6] profile: " + json.dumps(out["defaults_profile"]))
+    ok &= (len(pafs) == len(timed) and not differ and n_mapped > 0
+           and real["n_handoff"] > 0)
+    ok &= all(counts[k] > 0 for k in DEFAULT_KERNELS)
+    if "merge_level" in out["kernels"]:
+        out["kernels"]["merge_level"]["launches"] = counts["merge_level"]
+    return ok
+
+
 def profile_block(bm, reads):
     """One block of T events with every slot live, timed plain and then
     traced with torch.profiler: wall per step, device kernel time per step,
@@ -1055,7 +1378,7 @@ def profile_block(bm, reads):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5")
+    ap.add_argument("--phases", default="1,2,3,4,5,6")
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     try:
@@ -1088,6 +1411,8 @@ def main(argv=None) -> int:
         ok &= phase_real(out, rate)
     if 5 in phases:
         ok &= phase_classic(out)
+    if 6 in phases:
+        ok &= phase_defaults(out)
     from uncalled_tpu_torch.ops._cuda import BUILD_DIR
 
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -1096,7 +1421,7 @@ def main(argv=None) -> int:
     print(out["card"])
     print(json.dumps({"kernels": [dict(name=k, **v)
                                   for k, v in out["kernels"].items()]}))
-    if not ok or phases != {1, 2, 3, 4, 5}:
+    if not ok or phases != {1, 2, 3, 4, 5, 6}:
         log("chip_smoke: FAILED" if not ok else "chip_smoke: partial run")
         return 1
     print(json.dumps({"ok": True, "device": {

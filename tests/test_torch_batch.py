@@ -1,7 +1,7 @@
 """The port's BatchMapper on the CPU gives the reference's golden PAF
 lines byte for byte (the conf of tests/test_pooled.py, with the slot
-handoff and the drain chain off: neither is ported yet, and neither
-changes a PAF byte)."""
+handoff and the drain chain off; tests/test_torch_drain_batch.py runs
+them, and neither changes a PAF byte)."""
 
 import json
 import os

@@ -80,8 +80,6 @@ def test_entry_points_default_to_cuda(monkeypatch):
     th = load_uncl(prefix + ".uncl")
     model = load_default()
     conf = Conf()
-    conf.engine.slot_handoff = False
-    conf.engine.drain_shrink = False
     with pytest.raises(RuntimeError, match="no CUDA"):
         PooledEngine(fmi, model, th, conf)
     with pytest.raises(RuntimeError, match="no CUDA"):
@@ -128,6 +126,8 @@ def test_chip_smoke_refuses_without_card_or_checkout(tmp_path, alone):
 
 
 def test_unported_options_raise():
+    """The conf defaults construct (slot handoff, drain chain, the bitonic
+    sort); only sampled_sa and the device event detector raise."""
     from uncalled_tpu_torch.config import Conf
     from uncalled_tpu_torch.index.bwa_compat import load_bwa_index
     from uncalled_tpu_torch.mapping.batch import BatchMapper
@@ -141,13 +141,16 @@ def test_unported_options_raise():
     fmi, th, model = load_bwa_index(prefix), load_uncl(prefix + ".uncl"), \
         load_default()
     conf = Conf()  # slot_handoff and drain_shrink default on
+    bm = BatchMapper(fmi, model, th, conf, device="cpu")
+    assert bm.eng.params.handoff and bm.eng.params.sort_mode == "flat"
+    assert "sw" in bm.eng.READOUT_KEYS
+    for over in ({"sort_mode": "bitonic"}, {"handoff": True}):
+        eng = PooledEngine(fmi, model, th, conf, device="cpu", B=4, **over)
+        assert all(getattr(eng.params, k) == v for k, v in over.items())
     with pytest.raises(NotImplementedError):
-        BatchMapper(fmi, model, th, conf, device="cpu")
-    conf.engine.slot_handoff = False
-    conf.engine.drain_shrink = False
-    for over in ({"sort_mode": "bitonic"}, {"handoff": True},
-                 {"sampled_sa": True}):
-        with pytest.raises(NotImplementedError):
-            PooledEngine(fmi, model, th, conf, device="cpu", B=4, **over)
+        PooledEngine(fmi, model, th, conf, device="cpu", B=4, sampled_sa=True)
     with pytest.raises(NotImplementedError):
         MapEngine(fmi, model, th, conf, device="cpu", B=4, sampled_sa=True)
+    conf.engine.device_dsp = True
+    with pytest.raises(NotImplementedError, match="device_dsp"):
+        BatchMapper(fmi, model, th, conf, device="cpu")

@@ -12,9 +12,16 @@ remap ladder (``conf.engine.remap_ladder``), each read to the first rung
 whose budgets cover its observed demand.  The last rung runs the
 reference's budgets and ignores its own overflow flags.
 
-Not in this port yet: the in-scan slot handoff and the straggler drain
-chain (both raise unless ``conf.engine.slot_handoff`` and ``drain_shrink``
-are off; neither changes a PAF byte).
+At the conf defaults two protocols run around the engine, and neither
+changes a PAF byte.  The in-scan slot handoff
+(``conf.engine.slot_handoff``, pooled engines): each occupied slot
+carries a standby read whose first 2T events ride every block, and a
+slot whose read decides mid-block switches to it on the device.  The
+straggler drain chain (``drain_shrink``): once the input is spent and
+few reads remain, they continue on a mapper B/``drain_div`` wide, by
+state migration between pooled engines and by restart on the classic
+entry; drains chain.  ``conf.engine.device_dsp`` raises (the device
+event detector is not ported).
 """
 
 from __future__ import annotations
@@ -23,13 +30,14 @@ import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..config import Conf
 from ..kmer import K
 from ..ops.events import detect_events_np
 from .engine import MapEngine
 from .paf import Paf, Tag
-from .pooled import PooledEngine
+from .pooled import LATCH_KEYS, PooledEngine
 
 F32 = np.float32
 F64 = np.float64
@@ -67,11 +75,11 @@ class BatchMapper:
                  **over):
         self.conf = conf or Conf()
         en = self.conf.engine
-        if en.slot_handoff or en.drain_shrink:
+        if en.device_dsp:
             raise NotImplementedError(
-                "the slot handoff and the drain chain are not ported yet: "
-                "set conf.engine.slot_handoff = conf.engine.drain_shrink = "
-                "False"
+                "conf.engine.device_dsp: the device event detector is not "
+                "ported yet (its f32 block sums differ from the host "
+                "detector's in the last ulps, so the results would too)"
             )
         if engine is None:
             if en.pooled and _rung == 0:
@@ -97,11 +105,22 @@ class BatchMapper:
         self._B_entry = _B_entry or self.eng.params.B
         self._dsp_pool = None
         self._next_mapper = None
+        self._over = dict(over)
+        self._drain_mapper = None
         self.ovf_why: dict = {}  # read id -> overflow bits at harvest
         self.demand: dict = {}  # read id -> (flags, valid, paths, rows, cl)
         self.disp_events = 0  # B*T per advance
         self.useful_events = 0  # per-read evt_i at harvest
         self.n_ejected = 0  # reads this mapper sent on to the next tier
+        # host seconds in drain migrations (device syncs included) and in
+        # refills (DSP included); mig_phase splits t_migrate into the
+        # fetch of dm_pool and n_paths and the migration's dispatch
+        self.t_migrate = 0.0
+        self.t_refill = 0.0
+        self.n_migrate = 0  # drain migrations attempted
+        self.mig_phase = [0.0, 0.0]
+        self.n_handoff = 0  # device switches harvested (swap branch)
+        # pool-global demand high-water [flags, valid, keep, entries, rows]
         self.pool_hw = np.zeros(5, np.int64)
 
     def _pool_tiers(self):
@@ -153,6 +172,40 @@ class BatchMapper:
                 _rung=self._rung + 1, B=B, P=P, C=P, R=R, CL=CL, CE=CE,
             )
         return self._next_mapper
+
+    def _get_drain(self) -> "BatchMapper":
+        """Straggler-drain mapper, built lazily and cached: the same rung
+        B/drain_div slots wide (at least 4), with twice the event block
+        (at most 128).  An eject tier's drain inherits the tier's per-read
+        pool geometry (slots per read, CL, R, FS, RE, RT; migration needs
+        equal CL) and keeps the tier's SC floor, since a monster read's
+        flag burst does not shrink with B; the entry rung's drain takes
+        the conf's sizing at the narrower B.  Drains chain."""
+        if self._drain_mapper is None:
+            Bd = max(4, self.eng.params.B // self.conf.engine.drain_div)
+            if self._pool_tier > 0:
+                pp = self.eng.params
+                slots = pp.S // pp.B
+                self._drain_mapper = BatchMapper(
+                    self.fmi, self.model, self.threshes, self.conf,
+                    emit_timing=self.emit_timing, _rung=self._rung,
+                    _pool_tier=self._pool_tier, _B_entry=self._B_entry,
+                    engine=PooledEngine(
+                        self.fmi, self.model, self.threshes, self.conf,
+                        device=self.eng.device, B=Bd, S=Bd * slots,
+                        SC=min(5 * Bd * slots,
+                               max(Bd * slots + Bd * slots // 4, pp.SC)),
+                        CL=pp.CL, R=pp.R, FS=pp.FS, RE=pp.RE, RT=pp.RT,
+                    ),
+                )
+            else:
+                self._drain_mapper = BatchMapper(
+                    self.fmi, self.model, self.threshes, self.conf,
+                    emit_timing=self.emit_timing, device=self.eng.device,
+                    _rung=self._rung, **{**self._over, "B": Bd},
+                )
+            self._drain_mapper.T = min(2 * self.T, 128)
+        return self._drain_mapper
 
     def _rung_fits(self, rung_i: int, why: int, dm) -> bool:
         """Could ladder rung ``rung_i`` hold a read whose overflow bits and
@@ -241,6 +294,19 @@ class BatchMapper:
         )
         return paf
 
+
+    def _prepare_many(self, reads) -> list:
+        """_prepare over a refill wave; more than 3 reads go to host
+        threads (the native detector is a ctypes call that releases the
+        GIL, and normalization is numpy)."""
+        if len(reads) <= 3:
+            return [self._prepare(r) for r in reads]
+        from concurrent.futures import ThreadPoolExecutor
+
+        if self._dsp_pool is None:
+            self._dsp_pool = ThreadPoolExecutor(max_workers=8)
+        return list(self._dsp_pool.map(self._prepare, reads))
+
     # --------------------------------------------------------------- main
     def map_reads(self, reads):
         """Generator over Paf results; ``reads`` is any iterable of
@@ -249,58 +315,245 @@ class BatchMapper:
         if hasattr(reads, "__len__"):
             reads = sorted(reads, key=lambda r: len(r.signal), reverse=True)
         B = self.eng.params.B
-        yield from self._run(iter(reads), [None] * B, self.eng.fresh_state())
+        yield from self._run(iter(reads), [None] * B, self.eng.fresh_state(),
+                             0, False, None)
 
-    def _run(self, it, slots, state):
-        """Core slot loop (see the module docstring)."""
+    def _try_migrate(self, dm, state, keep):
+        """Drain by migration: move the stragglers' device state into the
+        narrow mapper ``dm`` instead of restarting them.  Returns the
+        migrated state; None where migration does not apply (classic
+        engines, more reads than drain slots, unequal CL or seed length);
+        "nofit" when their pool segments exceed the drain's pool."""
+        self.n_migrate += 1
+        if not (isinstance(self.eng, PooledEngine)
+                and isinstance(dm.eng, PooledEngine)):
+            return None
+        ps, pd = self.eng.params, dm.eng.params
+        if len(keep) > pd.B or ps.CL != pd.CL or ps.seed_len != pd.seed_len:
+            return None
+        t0 = time.time()
+        # one device round trip for the high-water absorb and the fit check
+        got = torch.cat([state["dm_pool"], state["n_paths"]]).cpu().numpy()
+        np.maximum(self.pool_hw, got[:5], out=self.pool_hw)
+        n_paths = got[5:]
+        t1 = time.time()
+        self.mig_phase[0] += t1 - t0
+        if int(n_paths[keep].sum()) > pd.S:
+            return "nofit"  # the caller may wait for fewer stragglers
+        sel = np.full(pd.B, -1, np.int32)
+        sel[: len(keep)] = keep
+        out = self.eng.migrate(state, sel, dm.eng)
+        self.mig_phase[1] += time.time() - t1
+        return out
+
+    def _absorb_hw(self, state):
+        """Fold the device's pool-global demand high-water into the host
+        record (at a run's end and before a migration)."""
+        if "dm_pool" in state:
+            np.maximum(self.pool_hw, state["dm_pool"].cpu().numpy(),
+                       out=self.pool_hw)
+
+    def _run(self, it, slots, state, pending, input_done, ovf_sink):
+        """Core slot loop.  ``ovf_sink`` non-None routes budget ejects to
+        the caller's list (drain mappers hand ejects up, so only the entry
+        mapper's ladder is ever built).
+
+        One block is in flight: block k+1 and its readout are dispatched
+        before block k's readout is fetched, so host harvest and refill
+        overlap the device; done slots are frozen by the engine's alive
+        mask, and refilled reads join the block after the in-flight one.
+
+        Slot-handoff protocol (pooled engines with ``handoff``): each
+        occupied slot carries a standby read whose 0-based [0, 2T) event
+        window rides every advance; when the primary decides mid-block the
+        device latches its result and restarts the slot as the standby.
+        The host sees the switch one block late, emits the latched PAF,
+        makes the standby the primary at exactly fed = evt_i + T (the
+        in-flight block's standby consumption is deterministic), and arms
+        the next read.  ``pending`` counts a standby from its arming.
+        """
         B, T = self.eng.params.B, self.T
-        pending = 0
+        ho = bool(getattr(self.eng.params, "handoff", False))
+        standby: dict = {}  # b -> armed standby _Slot
+        promote_pending = np.zeros(B, bool)
+        ready: list = []  # (b, slot): standbys that enter the classic way
+        returned: list = []  # disarmed standbys' reads, queued again
+        stale = np.zeros(B, bool)  # freed slots whose device rows live on
+
+        def _pull():
+            """Next read: disarmed standbys first, then the input iterator
+            (StopIteration only when both are dry)."""
+            nonlocal input_done
+            if returned:
+                return returned.pop(0)
+            try:
+                return next(it)
+            except StopIteration:
+                input_done = True
+                raise
 
         def refill(state):
+            t0 = time.time()
+            try:
+                return _refill(state)
+            finally:
+                self.t_refill += time.time() - t0
+
+        def _refill(state):
             nonlocal pending
-            mask = np.zeros(B, bool)
+            mask = stale.copy()  # latch-fallback slots: rows still alive
+            stale[:] = False
+            # standbys whose primary never switched (exhausted or ejected
+            # reads) enter their slot the classic way: a fresh reset, which
+            # also wipes any device-side switch state
+            while ready:
+                b, s = ready.pop()
+                assert slots[b] is None
+                s.t_start = time.time()
+                slots[b] = s
+                mask[b] = True  # pending was counted when it was armed
             incoming = []
             for b in range(B):
                 if slots[b] is None:
                     try:
-                        incoming.append((b, next(it)))
+                        incoming.append((b, _pull()))
                     except StopIteration:
                         break
             if incoming:
-                if len(incoming) > 3:
-                    # the native detector is a ctypes call (GIL released)
-                    # and normalization is numpy: prep parallelizes
-                    from concurrent.futures import ThreadPoolExecutor
-
-                    if self._dsp_pool is None:
-                        self._dsp_pool = ThreadPoolExecutor(max_workers=8)
-                    new_slots = list(self._dsp_pool.map(
-                        self._prepare, [r for _, r in incoming]
-                    ))
-                else:
-                    new_slots = [self._prepare(r) for _, r in incoming]
                 now = time.time()
-                for (b, _), s in zip(incoming, new_slots):
+                for (b, _), s in zip(
+                        incoming, self._prepare_many([r for _, r in incoming])):
                     s.t_start = now
                     slots[b] = s
                     mask[b] = True
                     pending += 1
-                state = self.eng.reset_slots(state, mask)
-            return state
+            if ho:
+                _arm_standbys()
+            return self.eng.reset_slots(state, mask) if mask.any() else state
+
+        def _arm_standbys():
+            """Attach the next queued read to every occupied slot that
+            lacks a standby (the device sees it through the standby window
+            at the next dispatch)."""
+            nonlocal pending
+            incoming = []
+            for b in range(B):
+                if slots[b] is None or b in standby:
+                    continue
+                # never arm past the end of the input: disarmed reads
+                # would be armed again and cycle with the disarm
+                if input_done:
+                    break
+                try:
+                    incoming.append((b, _pull()))
+                except StopIteration:
+                    break
+            now = time.time()
+            for (b, _), s in zip(
+                    incoming, self._prepare_many([r for _, r in incoming])):
+                s.t_start = now
+                standby[b] = s
+                pending += 1
 
         remap = (
             self.conf.engine.remap_wide
             and self._rung < len(self.conf.engine.remap_ladder)
         )
-        overflowed = []
+        overflowed = [] if ovf_sink is None else ovf_sink
+        drained = []
+        en = self.conf.engine
+        # drain at the entry rung and at pooled eject tiers; classic ladder
+        # rungs stay drain-free.  A drain that would not narrow the batch
+        # (the B/div shrink floors at 4) is not built.
+        can_drain = (
+            en.drain_shrink
+            and B >= en.drain_min_batch
+            and (self._rung == 0 or self._pool_tier > 0)
+            and max(4, B // en.drain_div) < B
+        )
+
+        def harvest(s, ro, b):
+            """Record a finished or ejected read's overflow bits, demand and
+            events from readout ``ro`` (the live or the latched fields)."""
+            dm = (int(ro["dm_flags"][b]), int(ro["dm_valid"][b]),
+                  int(ro["dm_paths"][b]), int(ro["dm_rows"][b]),
+                  int(ro["dm_cl"][b]))
+            self.demand[s.read.id] = dm
+            self.useful_events += int(ro["evt_i"][b])
+            if ro["ovf"][b]:
+                self.ovf_why[s.read.id] = int(ro["ovf_why"][b])
+            return dm
+
+        def emit_latched(s, ro, b):
+            """The latched (lt_*) readout of a switched-away primary: a Paf
+            to yield, or None when the read went to the eject list."""
+            lt = {k: ro["lt_" + k] for k in LATCH_KEYS}
+            dm = harvest(s, lt, b)
+            if lt["ovf"][b] and remap:
+                overflowed.append((s.read, int(lt["ovf_why"][b]), dm))
+                return None
+            return self._finalize(s, lt, b)
+
         state = refill(state)
-        # one block in flight: dispatch block k+1 and its readout before
-        # fetching block k's readout, so host harvest/refill overlaps the
-        # device; done slots are frozen by the engine's alive mask
-        pend = None
-        while pending or pend is not None:
+        drain_cont = None
+        zeros_b = np.zeros(B, bool)
+        nofit_at = None  # straggler count at the last "nofit" migration
+        pend = None  # the block in flight: (readout, [(b, slot, fed)])
+        while pending or pend is not None or returned:
+            if returned and not pending and pend is None:
+                state = refill(state)  # re-admit disarmed standbys
+            thresh = max(4, B // en.drain_div)
+            if (ho and can_drain and input_done and standby
+                    and pending - len(standby) <= thresh
+                    and (nofit_at is None
+                         or pending - len(standby) < nofit_at)):
+                # tail mode: lingering standbys must not starve the drain.
+                # Stop feeding their windows and queue them again; one the
+                # in-flight block already switched to is caught at harvest
+                # by the latch fallback below.
+                for b in list(standby):
+                    returned.append(standby.pop(b).read)
+                    pending -= 1  # counted again when pulled
+            want_drain = (
+                can_drain and input_done and pending <= thresh
+                # standby windows and unpromoted switches do not migrate
+                and not standby and not promote_pending.any() and not ready
+                # a "nofit" attempt idles the device (the pipeline must be
+                # dry): retry only once the straggler count has dropped
+                and (nofit_at is None or pending < nofit_at)
+            )
+            if pend is None and pending and want_drain:
+                # straggler drain: continue the remaining reads on a narrow
+                # mapper, by state migration when pooled, by restart else
+                dm = self._get_drain()
+                keep = [b for b in range(B) if slots[b] is not None]
+                t0 = time.time()
+                mig = self._try_migrate(dm, state, keep)
+                self.t_migrate += time.time() - t0
+                if mig == "nofit":
+                    nofit_at = pending
+                    if (self._pool_tier > 0
+                            or pending > max(4, B // (2 * en.drain_div))):
+                        # path-heavy stragglers: stay wide until fewer
+                        # remain rather than re-running them all; tier
+                        # monsters never restart
+                        mig = None
+                        want_drain = False
+                    else:
+                        mig = None
+                        drained = [s.read for s in slots if s is not None]
+                elif mig is not None:
+                    dslots = [slots[b] for b in keep]
+                    dslots += [None] * (dm.eng.params.B - len(keep))
+                    drain_cont = (dm, dslots, mig, len(keep))
+                else:
+                    drained = [s.read for s in slots if s is not None]
+                if mig is not None or drained:
+                    slots = [None] * B
+                    pending = 0
+                    break
             new_pend = None
-            if pending:
+            if pending and not want_drain:
                 means = np.zeros((B, T), np.float32)
                 on = np.zeros((B, T), bool)
                 snap = []
@@ -312,48 +565,96 @@ class BatchMapper:
                     on[b, : len(nxt)] = True
                     s.fed += len(nxt)
                     snap.append((b, s, s.fed))
-                state = self.eng.advance(state, means, on)
+                if ho and (standby or promote_pending.any()):
+                    W = 2 * T
+                    sb_m = np.zeros((B, W), np.float32)
+                    sb_o = np.zeros((B, W), bool)
+                    armed = np.zeros(B, bool)
+                    for b, ss in standby.items():
+                        w = ss.means[:W]
+                        sb_m[b, : len(w)] = w
+                        sb_o[b, : len(w)] = True
+                        armed[b] = True
+                    prom = promote_pending.copy()
+                    promote_pending[:] = False
+                    state = self.eng.advance(state, means, on,
+                                             sb=(sb_m, sb_o, armed, prom))
+                else:
+                    state = self.eng.advance(state, means, on)
                 self.disp_events += B * T
                 new_pend = (self.eng.readout_start(state), snap)
             if pend is not None:
                 ro = self.eng.readout_get(pend[0])
+                ro_sw = ro["sw"] if (ho and "sw" in ro) else zeros_b
                 for b, s, fed_after in pend[1]:
                     if slots[b] is not s:
                         continue  # harvested at an earlier block
+                    if ho and b in standby and ro_sw[b]:
+                        # the device switched this slot to its standby:
+                        # emit the latched primary and promote the standby
+                        # at the deterministic offset (evt_i at readout + T
+                        # events of the in-flight block)
+                        paf = emit_latched(s, ro, b)
+                        if paf is not None:
+                            yield paf
+                        ss = standby.pop(b)
+                        ss.fed = min(int(ro["evt_i"][b]) + T, len(ss.means))
+                        slots[b] = ss
+                        promote_pending[b] = True
+                        pending -= 1
+                        self.n_handoff += 1
+                        continue  # the promoted read reports next block
+                    if ho and ro_sw[b] and not promote_pending[b]:
+                        # latch fallback: the device switched, but the
+                        # standby was disarmed (tail mode) before this
+                        # harvest.  Emit the primary from the latch; the
+                        # standby, already queued again, reruns from its
+                        # start after the slot's reset.
+                        paf = emit_latched(s, ro, b)
+                        if paf is not None:
+                            yield paf
+                        slots[b] = None
+                        stale[b] = True
+                        pending -= 1
+                        continue
                     exhausted = fed_after >= len(s.means)
-                    dm = (
-                        int(ro["dm_flags"][b]), int(ro["dm_valid"][b]),
-                        int(ro["dm_paths"][b]), int(ro["dm_rows"][b]),
-                        int(ro["dm_cl"][b]),
-                    )
                     # early eject: once the sticky overflow flag is set
                     # this run's result is discarded for a wider rerun
                     if remap and ro["ovf"][b]:
-                        self.ovf_why[s.read.id] = int(ro["ovf_why"][b])
-                        self.demand[s.read.id] = dm
-                        overflowed.append(
-                            (s.read, int(ro["ovf_why"][b]), dm))
-                        self.useful_events += int(ro["evt_i"][b])
-                        slots[b] = None
-                        pending -= 1
+                        dm = harvest(s, ro, b)
+                        overflowed.append((s.read, int(ro["ovf_why"][b]), dm))
                     elif ro["done"][b] or exhausted:
-                        if ro["ovf"][b]:
-                            self.ovf_why[s.read.id] = int(ro["ovf_why"][b])
-                        self.demand[s.read.id] = dm
-                        self.useful_events += int(ro["evt_i"][b])
+                        harvest(s, ro, b)
                         yield self._finalize(s, ro, b)
-                        slots[b] = None
-                        pending -= 1
+                    else:
+                        continue
+                    slots[b] = None
+                    pending -= 1
+                    if ho and b in standby:
+                        # the unswitched standby takes the slot classically
+                        ready.append((b, standby.pop(b)))
                 # refill resets slots on the latest dispatched state, so
                 # new reads join the block after the in-flight one
                 state = refill(state)
             pend = new_pend
 
-        if "dm_pool" in state:
-            np.maximum(self.pool_hw, state["dm_pool"].cpu().numpy(),
-                       out=self.pool_hw)
-        if not overflowed:
-            return
+        self._absorb_hw(state)
+        if drain_cont is not None:
+            dm, dslots, mig, dn = drain_cont
+            # disarmed standbys enter through the drain's own input
+            yield from dm._run(iter(returned), dslots, mig, dn, not returned,
+                               overflowed)
+            returned = []
+        elif drained:
+            dm = self._get_drain()
+            yield from dm._run(iter(drained + returned),
+                               [None] * dm.eng.params.B,
+                               dm.eng.fresh_state(), 0, False, overflowed)
+            returned = []
+        assert not returned, "disarmed standbys must enter a mapper again"
+
+        if ovf_sink is not None or not overflowed:
+            return  # a drain's ejects are routed by the mapper above it
         self.n_ejected += len(overflowed)
         if (isinstance(self.eng, PooledEngine)
                 and self._pool_tier < len(self._pool_tiers())):

@@ -355,8 +355,9 @@ def readout_start(state, keys=READOUT_KEYS):
 def readout_get(packed, keys=READOUT_KEYS) -> dict:
     """A :func:`readout_start` result -> host numpy dict (bools restored)."""
     out = dict(zip(keys, packed.cpu().numpy()))
-    for k in ("done", "success", "ovf"):
-        out[k] = out[k].astype(bool)
+    for k in ("done", "success", "ovf", "sw", "lt_success", "lt_ovf"):
+        if k in out:
+            out[k] = out[k].astype(bool)
     return out
 
 

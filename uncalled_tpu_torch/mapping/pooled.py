@@ -9,13 +9,17 @@ or a flat gather.  Semantics are the reference mapper's event loop
 dict of tensors with the JAX state's keys and dtypes, and every event
 leaves it bit-identical to the JAX step's (tests/test_torch_pooled_step.py).
 
-On the card four hand-written CUDA kernels carry the step: the flat
+On the card five hand-written CUDA kernels carry the step: the flat
 gather behind every ``_flat_take``/``_flat_pack``, the per-read k-mer
-pair count, the ring assembly and the compact seed-tracker fold.  The
-step does no host synchronisation: every shape is static.
+pair count, the ring assembly, the compact seed-tracker fold and, in the
+bitonic candidate sort, the merge level.  The step does no host
+synchronisation: every shape is static.
 
-This slice runs ``sort_mode="flat"`` without the in-scan slot handoff;
-``handoff``, ``sort_mode="bitonic"`` and ``sampled_sa`` raise.
+Both candidate sorts run: ``sort_mode="bitonic"`` (the default on the
+card, as JAX's on its accelerator) and ``"flat"`` (the CPU default).  The
+in-scan slot handoff (``handoff``) runs, and ``migrate_pool_state`` moves
+reads into a narrower engine for the straggler drain.  ``sampled_sa``
+raises.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ..config import Conf
 from ..device import resolve
 from ..kmer import KMER_COUNT
 from ..ops.flat_gather import flat_gather, flat_gather_fields, pair_counts
+from ..ops.sortkern import merge_level
 from ..ops.stepkern import ring_assemble
 from ..ops.tracker_kernel import tracker_run_compact
 from .engine import (
@@ -125,6 +130,17 @@ LATCH_KEYS = (
     "mm_len", "mm_ref_st", "mm_r1", "mm_r2e", "mm_evt_st", "mm_evt_en",
 )
 
+# per-read fields the in-scan switch resets for the standby read: exactly
+# reset_pool_rows' recipe (n_paths kept: the read still owns its emptied
+# slots)
+_SWITCH_RESET = (
+    "cl_valid", "cl_count", "cl_ref_st", "cl_r1", "cl_r2e", "cl_evt_st",
+    "cl_evt_en", "cl_total", "len_sum", "n_cl", "mm_len", "mm_ref_st",
+    "mm_r1", "mm_r2e", "mm_evt_st", "mm_evt_en", "evt_i", "success",
+    "dec_evt", "ovf", "ovf_why", "dm_flags", "dm_valid", "dm_paths",
+    "dm_rows", "dm_cl",
+)
+
 
 def make_pool_state(p: PoolParams, device="cpu"):
     """Fresh pooled state: empty pool, B empty read slots."""
@@ -179,7 +195,9 @@ def make_pool_state(p: PoolParams, device="cpu"):
         "dm_cl": z(B),
         # pool-global demand high-water [flags, valid, keep, entries, rows]
         "dm_pool": z(5),
-        # slot-handoff latch (not run in this port; kept for key parity)
+        # slot-handoff latch (PoolParams.handoff): sw marks a slot that
+        # switched to its standby read mid-block; lt_* hold the finished
+        # read's readout fields until the host harvests and promotes it
         "sw": zb(B),
         **{"lt_" + k: (zb(B) if k in ("success", "ovf") else z(B))
            for k in LATCH_KEYS},
@@ -249,6 +267,60 @@ def _sort1d(keys, payloads=(), num_keys=None):
         order = torch.sort(kk, stable=True).indices
         perm = order if perm is None else perm.index_select(0, order)
     return tuple(a.index_select(0, perm) for a in (*keys, *payloads))
+
+
+def _rowsort(ks, width: int, k_level: int):
+    """Row-parallel ascending lexicographic sort of [NP] int32 key tuples
+    viewed as [NP/width, width] rows; row r descends iff (r*width &
+    k_level) != 0, by the bitwise-NOT trick (~ reverses int32 order).
+    Stable passes along dim 1, two keys per int64 pass (high key in the
+    upper 32 bits, low key offset into [0, 2^32))."""
+    NP = ks[0].shape[0]
+    G = NP // width
+    dev = ks[0].device
+    desc = (((torch.arange(G, dtype=I32, device=dev) * width) & k_level)
+            != 0)[:, None]
+    ops = [torch.where(desc, torch.bitwise_not(a.reshape(G, width)),
+                       a.reshape(G, width)) for a in ks]
+    packed = []
+    for q in range(len(ops) % 2, len(ops), 2):
+        packed.append((ops[q].to(torch.int64) << 32)
+                      + (ops[q + 1].to(torch.int64) + 2**31))
+    if len(ops) % 2:
+        packed.insert(0, ops[0])
+    perm = None
+    for k in reversed(packed):
+        kk = k if perm is None else torch.gather(k, 1, perm)
+        order = torch.sort(kk, dim=1, stable=True).indices
+        perm = order if perm is None else torch.gather(perm, 1, order)
+    return [torch.where(desc, torch.bitwise_not(r), r).reshape(NP)
+            for r in (torch.gather(a, 1, perm) for a in ops)]
+
+
+def _sort1d_bitonic(keys):
+    """Flat ascending lexicographic sort of int32 key tuples by a hybrid
+    bitonic merge (the JAX ``_sort1d_bitonic`` on its kernel path): keys
+    pad with INT32_MAX to NP = the next power of two >= max(N, 8192);
+    row sorts build runs of 8192 in alternating directions; each level
+    k_lv = 16384 ... NP runs its stride >= C passes in ``merge_level`` (C =
+    128 for k_lv <= 32768, else 1024) and finishes with a row sort of
+    width C.  Every key is compared, so the result equals a full
+    lexicographic sort of the tuples exactly."""
+    N = keys[0].shape[0]
+    C0 = 8192
+    NP = 1 << (max(N, C0) - 1).bit_length()
+    ks = [torch.cat([k, torch.full((NP - N,), INT32_MAX, dtype=I32,
+                                   device=k.device)]) if NP > N else k
+          for k in keys]
+    W0 = min(C0, NP)
+    ks = _rowsort(ks, W0, W0 if W0 < NP else NP)
+    k_lv = 2 * W0
+    while k_lv <= NP:
+        C = 128 if k_lv <= 32768 else 1024
+        ks = merge_level(ks, k_lv, C)
+        ks = _rowsort(ks, min(C, NP), k_lv)
+        k_lv *= 2
+    return tuple(k[:N] for k in ks)
 
 
 def _flat_take(tbl, idx):
@@ -351,7 +423,39 @@ def _compact1d(valid, w_out):
 # the pooled event step
 # ---------------------------------------------------------------------------
 
-def _pool_event_step(idx, p: PoolParams, st, ev, ev_on):
+def _switch_to_standby(st, ev, ev_on, sb):
+    """The in-scan slot handoff (PoolParams.handoff), at the start of an
+    event: a done slot with an armed standby latches its readout fields
+    (lt_*) and restarts as the standby read this very event.  Its per-read
+    state resets as reset_pool_rows resets it (n_paths kept; the caller
+    empties its pool rows), and its event source flips to the 0-based
+    standby window ``sb = (sb_m [B, W], sb_o [B, W], sb_armed [B])``,
+    indexed by the post-reset evt_i.  Returns (state, ev, ev_on, swm), swm
+    the slots that switched now."""
+    sb_m, sb_o, sb_armed = sb
+    W = sb_m.shape[1]
+    swm = st["done"] & sb_armed & (~st["sw"])
+    use_sb = st["sw"] | swm
+    evt = st["evt_i"]
+    rel = torch.where(swm, 0, evt.clamp(0, W - 1)).to(torch.int64)[:, None]
+    sb_ev = torch.gather(sb_m, 1, rel)[:, 0]
+    sb_ok = torch.gather(sb_o, 1, rel)[:, 0] & (torch.where(swm, 0, evt) < W)
+    ev = torch.where(use_sb, sb_ev, ev)
+    ev_on = torch.where(use_sb, sb_ok, ev_on)
+    st = dict(st)
+    for k in LATCH_KEYS:
+        st["lt_" + k] = torch.where(swm, st[k], st["lt_" + k])
+    st["sw"] = use_sb
+    for k in _SWITCH_RESET:
+        v = st[k]
+        m = swm.view(swm.shape + (1,) * (v.dim() - 1))
+        st[k] = torch.where(m, torch.zeros((), dtype=v.dtype,
+                                           device=v.device), v)
+    st["done"] = st["done"] & (~swm)
+    return st, ev, ev_on, swm
+
+
+def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     dev = ev.device
     B, S, SC, SL = p.B, p.S, p.SC, p.seed_len
     KMASK = KMER_COUNT - 1
@@ -373,18 +477,27 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on):
         return torch.cat([a[1:], torch.full((1,), fill, dtype=a.dtype,
                                             device=dev)])
 
+    swm = None
+    if p.handoff and sb is not None:
+        st, ev, ev_on, swm = _switch_to_standby(st, ev, ev_on, sb)
+
     alive = (~st["done"]) & ev_on  # [B]
     probs = _match_probs(idx, ev, p.exact_probs)  # [B, 1024] f32
 
     rid = st["q_rid"]  # [S], B = dead
     ridc = rid.clamp(max=B - 1)
     owned = rid < B
-    q_start, q_end, q_kmer = st["q_start"], st["q_end"], st["q_kmer"]
-    q_total, q_consec, q_moves = st["q_total"], st["q_consec"], st["q_moves"]
-    q_sa, q_cum = st["q_sa"], st["q_cum"]
 
     # per-read segment boundaries in slot space
     off = torch.cat([full(1, 0), _csum(st["n_paths"])])  # [B+1]
+    if swm is not None:
+        # empty the switching reads' pool rows in place (q_total = 0 kills
+        # their flags and carry; the assembly drops them)
+        (sw_slot,) = _seg_broadcast([swm], off, S)
+        st["q_total"] = torch.where(sw_slot & owned, 0, st["q_total"])
+    q_start, q_end, q_kmer = st["q_start"], st["q_end"], st["q_kmer"]
+    q_total, q_consec, q_moves = st["q_total"], st["q_consec"], st["q_moves"]
+    q_sa, q_cum = st["q_sa"], st["q_cum"]
     al_slot, run_slot = _seg_broadcast([alive, alive | st["done"]], off, S)
     slot_alive = owned & al_slot & (q_total > 0)
 
@@ -508,14 +621,19 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on):
     e_rows = torch.where(e_valid, fmlen.clamp(max=p.max_rep_copy), 0)
 
     # ---- sort candidates by (read, fm_start, fm_end, seed_prob) ----------
-    if p.sort_mode != "flat":
-        raise NotImplementedError(f"sort_mode={p.sort_mode!r} is not ported")
+    # the last key is the creation index: full ties keep creation order
     rid_key = torch.where(cvalid, crid, B)
     k1 = torch.where(cvalid, ns, INT32_MAX)
     k2 = torch.where(cvalid, ne, INT32_MAX)
-    rks, k1s, k2s, k3s, perm = _sort1d(
-        (rid_key, k1, k2, seedprob, iota(SC)), (), num_keys=5
-    )
+    if p.sort_mode == "bitonic":
+        rks, k1s, k2s, k3i, perm = _sort1d_bitonic(
+            (rid_key, k1, k2, _f32_sort_key(seedprob), iota(SC))
+        )
+        k3s = _f32_from_sort_key(k3i)
+    else:
+        rks, k1s, k2s, k3s, perm = _sort1d(
+            (rid_key, k1, k2, seedprob, iota(SC)), (), num_keys=5
+        )
     svalid = rks < B
     ns_s, ne_s, seedprob_s = k1s, k2s, k3s
     rid_s = rks.clamp(max=B - 1)
@@ -809,11 +927,86 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on):
     return out
 
 
-def pool_advance_block(idx, p: PoolParams, state, means, on):
-    """Advance all read slots through T events: means/on are [B, T]."""
+def migrate_pool_state(src_p: PoolParams, dst_p: PoolParams, state, sel):
+    """Move selected reads' state into a (smaller) pooled engine's shape.
+
+    ``sel`` [B_dst] int32 holds source read rows (-1 = an empty
+    destination slot, which takes fresh values).  Per-read arrays are
+    gathered by row; each read's contiguous pool segment moves to its new
+    exclusive-cumsum offset; ``dm_pool`` starts fresh (the host absorbs
+    the source's before it migrates).  This lets the straggler drain
+    continue reads on a narrow batch instead of restarting them."""
+    Bs, Ss = src_p.B, src_p.S
+    Bd, Sd = dst_p.B, dst_p.S
+    dev = state["n_paths"].device
+    valid = sel >= 0
+    selc = sel.clamp(0, Bs - 1).to(torch.int64)
+    fresh = make_pool_state(dst_p, dev)
+    out = {}
+    for k, v in state.items():
+        if k.startswith("q_"):
+            continue
+        if k == "dm_pool":
+            out[k] = fresh[k]
+            continue
+        g = v.index_select(0, selc)
+        w = valid.view(valid.shape + (1,) * (g.dim() - 1))
+        out[k] = torch.where(w, g, fresh[k])
+    n_new = torch.where(valid, state["n_paths"].index_select(0, selc), 0)
+    out["n_paths"] = n_new
+    zero = torch.zeros(1, dtype=I32, device=dev)
+    off_src = torch.cat([zero, _csum(state["n_paths"])])
+    new_off = torch.cat([zero, _csum(n_new)])
+    j = _iota(Sd, dev)
+    k_read = _bucket_of(new_off[:-1], Sd).clamp(0, Bd - 1)
+    within = j - _flat_take(new_off, k_read)
+    src_b = _flat_take(off_src.index_select(0, selc), k_read)
+    src_idx = (src_b + within).clamp(0, Ss - 1)
+    ok = j < new_off[-1]
+    flds = ["q_start", "q_end", "q_kmer", "q_total", "q_consec", "q_moves",
+            "q_sa"]
+    got = _flat_pack([state[f] for f in flds], src_idx)
+    for f, g in zip(flds, got):
+        out[f] = ok & g if f == "q_sa" else torch.where(ok, g, fresh[f])
+    out["q_rid"] = torch.where(ok, k_read, Bd)
+    cum = state["q_cum"].index_select(0, src_idx.to(torch.int64))
+    out["q_cum"] = torch.where(ok[:, None], cum, 0.0)
+    return out
+
+
+def pool_advance_block(idx, p: PoolParams, state, means, on, sb=None):
+    """Advance all read slots through T events: means/on are [B, T].
+
+    With ``p.handoff``, ``sb`` = (sb_means [B, W], sb_on [B, W], sb_armed
+    [B], promote [B]): the standby windows (0-based event windows of the
+    slots' next reads), which slots have one armed, and which switched
+    slots the host has promoted to the primary lane (their sw latch
+    clears before the first event)."""
+    if p.handoff:
+        if sb is None:
+            B, T = means.shape
+            sb = _zero_windows(B, T, means.device)
+        sb_m, sb_o, sb_armed, promote = sb
+        state = dict(state)
+        state["sw"] = state["sw"] & (~promote)
+        win = (sb_m, sb_o, sb_armed)
+    else:
+        win = None
     for t in range(means.shape[1]):
-        state = _pool_event_step(idx, p, state, means[:, t], on[:, t])
+        state = _pool_event_step(idx, p, state, means[:, t], on[:, t],
+                                 sb=win)
     return state
+
+
+def _zero_windows(B, T, device):
+    """Standby windows with nothing armed: W = 2T zeros, no slot armed,
+    none promoted."""
+    return (
+        torch.zeros((B, 2 * T), dtype=F32, device=device),
+        torch.zeros((B, 2 * T), dtype=torch.bool, device=device),
+        torch.zeros((B,), dtype=torch.bool, device=device),
+        torch.zeros((B,), dtype=torch.bool, device=device),
+    )
 
 
 class PooledEngine:
@@ -826,7 +1019,10 @@ class PooledEngine:
                  device=None, **over):
         self.device = resolve(device)
         self.conf = conf or Conf()
-        over.setdefault("sort_mode", "flat")
+        # the JAX engine's accelerator rule: the bitonic sort with its
+        # merge kernel on the card, the flat sort on the CPU
+        over.setdefault("sort_mode",
+                        "bitonic" if self.device.type == "cuda" else "flat")
         # genome-scaled pool caps (the JAX engine's sizing for >= 150 Mb
         # indexes; the 4.7 Mb bench keeps the lean shapes)
         if getattr(fmi, "n", 0) >= 150_000_000:
@@ -841,14 +1037,10 @@ class PooledEngine:
                 ))
         self.params = p = PoolParams.from_conf(self.conf, **over)
         if p.handoff:
-            raise NotImplementedError(
-                "the in-scan slot handoff is not ported yet: set "
-                "conf.engine.slot_handoff = False"
-            )
-        if p.sort_mode != "flat":
-            raise NotImplementedError(
-                f"sort_mode={p.sort_mode!r} is not ported yet (use 'flat')"
-            )
+            # latched fields and the switch flag ride the packed readout
+            self.READOUT_KEYS = READOUT_KEYS + ("sw",) + tuple(
+                "lt_" + k for k in LATCH_KEYS)
+        self._zero_sb = {}  # (B, T) -> standby windows with nothing armed
         self.fmi = fmi
         self.model = model
         self.idx = device_index(
@@ -864,10 +1056,32 @@ class PooledEngine:
             state, torch.as_tensor(np.asarray(mask, bool), device=self.device)
         )
 
-    def advance(self, state, means, on):
+    def migrate(self, state, sel, dst: "PooledEngine"):
+        """Relocate reads ``sel`` (numpy [B_dst], -1 = empty) into
+        ``dst``'s state shape; see :func:`migrate_pool_state`."""
+        sel = torch.as_tensor(np.asarray(sel, np.int32), device=self.device)
+        return migrate_pool_state(self.params, dst.params, state, sel)
+
+    def advance(self, state, means, on, sb=None):
+        """T events for every slot (means/on [B, T]); with the handoff on,
+        ``sb`` = (sb_means [B, 2T], sb_on [B, 2T], armed [B], promote [B])
+        host arrays, or None for windows with nothing armed (kept on the
+        device per (B, T))."""
         means = torch.as_tensor(np.asarray(means, np.float32),
                                 device=self.device)
         on = torch.as_tensor(np.asarray(on, bool), device=self.device)
+        if self.params.handoff:
+            if sb is None:
+                key = tuple(means.shape)
+                sb = self._zero_sb.get(key)
+                if sb is None:
+                    sb = self._zero_sb[key] = _zero_windows(*key, self.device)
+            else:
+                sb = tuple(
+                    torch.as_tensor(np.asarray(a, dt), device=self.device)
+                    for a, dt in zip(sb, (np.float32, bool, bool, bool)))
+            return pool_advance_block(self.idx, self.params, state, means,
+                                      on, sb=sb)
         return pool_advance_block(self.idx, self.params, state, means, on)
 
     def readout_start(self, state):

@@ -41,6 +41,7 @@ _FUNCS = {
     "tracker_fold_compact": ("tracker_kernel", "aiiii"),
     "tracker_fold_rows": ("tracker_kernel", "aiiii"),
     "row_gather_i32": ("row_gather", "piiipiip"),
+    "merge_level_i32": ("sortkern", "aiiii"),
 }
 
 COUNTS = {
@@ -50,6 +51,7 @@ COUNTS = {
     "tracker_fold": 0,
     "tracker_fold_rows": 0,
     "row_gather": 0,
+    "merge_level": 0,
 }
 
 _libs: dict = {}
