@@ -16,7 +16,11 @@ verdict, printed only when every phase passed):
    row gathers of the B=64 rung and the final rung, the row fold at
    B=64/CL=1024/R=256 and B=32/CL=4096/R=1024): bits must be equal;
    kernel, plain and (where one PyTorch call computes the same function)
-   library device times; the whole bitonic sort against the flat sort;
+   library device times; the column gathers at the three sites that
+   once packed their fields into a table (pooled parent pack, the
+   unified record table's five segments, classic parent pack), each
+   against that pack plus one library gather; the whole bitonic sort
+   against the flat sort;
 3. the 14 golden reads on the example index through ``BatchMapper``, on
    the pooled engine and on the classic engine: every PAF line
    byte-identical to ``tests/fixtures/golden_pafs.json``, with every
@@ -338,6 +342,168 @@ def gather_bytes(tbl, idx, shared) -> int:
     return rows * F * es + idx.numel() * (idx.element_size() + F * es)
 
 
+def rand32(rng, shape, f32=False):
+    """Random 32-bit patterns as int32 numpy; f32 ones with NaN payloads,
+    signed zeros and infinities mixed in (return them viewed as f32)."""
+    a = rng.integers(-2**31, 2**31 - 1, size=shape,
+                     dtype=np.int64).astype(np.int32)
+    if f32:
+        special = np.array([0, -2**31, 0x7F800000, -8388608, 0x7FC00001,
+                            0x7F800001], np.int64).astype(np.int32)
+        n = max(8, a.size // 64)
+        a.reshape(-1)[rng.integers(0, a.size, n)] = rng.choice(special, n)
+        return a.view(np.float32)
+    return a
+
+
+def keep(t):
+    """A copy of a captured tensor in its own layout (strides, and a
+    stride-0 batch dim stays shared), so a re-check sees what the kernel
+    saw; lists copy element by element, constants stay."""
+    import torch
+
+    if isinstance(t, (list, tuple)):
+        return [keep(x) for x in t]
+    if not isinstance(t, torch.Tensor):
+        return t
+    if t.dim() and t.stride(0) == 0:
+        return keep(t[0])[None].expand(t.shape)
+    return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                               device=t.device).copy_(t)
+
+
+def cols_bytes(cols, lens, idx) -> int:
+    """Bytes a column gather must move: in each segment, each distinct row
+    it reads once per tensor column (per batch row for a per-row segment,
+    once in all for a shared one), nothing for a constant; each index
+    once and each int32 output element once."""
+    import torch
+
+    rows = idx.dim() == 2
+    N = sum(lens)
+    ends = torch.tensor(np.cumsum(lens), device=idx.device)
+    ix = idx.clamp(0, N - 1).long()
+    seg = torch.searchsorted(ends, ix, right=True)
+    keys = ix + torch.arange(ix.shape[0], device=ix.device)[:, None] * N \
+        if rows else ix
+    total = idx.numel() * 4 * (1 + len(cols))
+    for s in range(len(lens)):
+        m = seg == s
+        n_all = int(torch.unique(ix[m]).numel())
+        n_row = int(torch.unique(keys[m]).numel())
+        for col in cols:
+            t = col[s] if isinstance(col, (list, tuple)) else col
+            if isinstance(t, torch.Tensor):
+                per_row = rows and t.dim() == 2 and t.stride(0) != 0
+                total += t.element_size() * (n_row if per_row else n_all)
+    return total
+
+
+def pack_sites(rng, dev):
+    """The three call sites that packed their fields before the gather, at
+    the main paths' shapes: (label, kernel call, plain call, the old pack
+    plus the library gather, columns, lens, idx)."""
+    import torch
+
+    from uncalled_tpu_torch.ops import flat_gather as fg
+    from uncalled_tpu_torch.ops import mxu_gather as mg
+
+    I32, F32 = torch.int32, torch.float32
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    def bits(x):
+        return x.view(I32) if x.dtype == F32 else x.to(I32)
+
+    S, SC = S_FULL, SC_FULL
+    out = []
+    # pooled parent pack: 7 pool fields (a bool among them), 3 f32
+    # fields, the 4 move probs as rows of the [4, S] flat-gather output;
+    # the step's parent index is sorted (children in slot order)
+    q = [t(rand32(rng, S)) for _ in range(6)] + [t(rng.random(S) < 0.3)]
+    f3 = [t(rand32(rng, S, True)) for _ in range(3)]
+    mv_p = t(rand32(rng, (4, S), True)).T
+    cols = q + f3 + [mv_p[:, c] for c in range(4)]
+    idx = t(np.sort(rng.integers(0, S, SC)).astype(np.int32))
+    ix = idx.clamp(0, S - 1).long()
+    out.append((
+        f"pooled parent pack F=14 [{S}] at {SC} sorted idx",
+        lambda c=cols, i=idx: fg.flat_gather_cols(c, i),
+        lambda c=cols, i=idx: fg.flat_gather_cols_plain(c, i),
+        lambda c=cols, i=ix: torch.stack([bits(x) for x in c], 1)
+        .index_select(0, i),
+        cols, [S], idx))
+
+    # the unified record table: ten columns of five segments A = SC,
+    # head = gap = SC, F = B*FS, D = S; random rows over all of it
+    BFS = B_FULL * 256
+    lens = [SC, SC, SC, BFS, S]
+    NU = sum(lens)
+
+    def seg(n, f32=False):
+        return t(rand32(rng, n, f32))
+
+    a = [seg(SC) for _ in range(7)]  # ns ne nk ntot ncons nmoves cpar
+    a_sa = t(rng.random(SC) < 0.2)
+    a_f = [seg(SC, True) for _ in range(2)]  # newcum, prob
+    hd = [seg(SC) for _ in range(4)]  # head_st head_en gap_st gap_en
+    ff = [seg(BFS) for _ in range(3)]  # f_st f_en fkm
+    f_prob = seg(BFS, True)
+    d = [seg(S) for _ in range(6)] + [t(rng.random(S) < 0.3)]
+    iota = torch.arange(S, dtype=I32, device=dev)
+    ucols = [
+        [a[0], hd[0], hd[2], ff[0], d[0]],
+        [a[1], hd[1], hd[3], ff[1], d[1]],
+        [a[2], a[2], a[2], ff[2], d[2]],
+        [a[3], 1, 1, 1, d[3]],
+        [a[4], 0, 0, 0, d[4]],
+        [a[5], 1, 1, 1, d[5]],
+        [a_sa, False, False, False, d[6]],
+        [a[6], -1, -1, -1, iota],
+        [a[3], 1, 1, 1, -1],
+        [a_f[0], a_f[1], a_f[1], f_prob, 0.0],
+    ]
+    uidx = t(rng.integers(-4, NU + 4, S).astype(np.int32))
+    uix = uidx.clamp(0, NU - 1).long()
+
+    def ucat(col):
+        dt = next(x.dtype for x in col if isinstance(x, torch.Tensor))
+        return bits(torch.cat([
+            x if isinstance(x, torch.Tensor)
+            else torch.full((n,), x, dtype=dt, device=dev)
+            for x, n in zip(col, lens)]))
+
+    def unified_lib(c=ucols, i=uix):
+        return torch.stack([ucat(col) for col in c], 1).index_select(0, i)
+
+    out.append((
+        f"unified record table F=10 of 5 segments, N={NU} at {S}",
+        lambda c=ucols, i=uidx: fg.flat_gather_cols(c, i),
+        lambda c=ucols, i=uidx: fg.flat_gather_cols_plain(c, i),
+        unified_lib, ucols, lens, uidx))
+
+    # classic parent pack at rung 0: 6 int32 path fields, the bool p_sa,
+    # and the two ring values as columns of a [B, P, 23] f32 ring; the
+    # step's parent index is sorted per read
+    B, P, CE = 64, 1024, 1280
+    pf = [t(rand32(rng, (B, P))) for _ in range(6)] + [
+        t(rng.random((B, P)) < 0.3)]
+    ring = t(rand32(rng, (B, P, RING), True))
+    ccols = pf + [ring[:, :, 5], ring[:, :, 17]]
+    cidx = t(np.sort(rng.integers(0, P, (B, CE)), 1).astype(np.int32))
+    cix = cidx.clamp(0, P - 1).long()[:, :, None].expand(B, CE, 9)
+    out.append((
+        f"classic parent pack F=9 [{B}, {P}] (ring columns strided) at "
+        f"[{B}, {CE}] sorted idx",
+        lambda c=ccols, i=cidx: mg.row_gather_cols(c, i),
+        lambda c=ccols, i=cidx: mg.row_gather_cols_plain(c, i),
+        lambda c=ccols, i=cix: torch.gather(
+            torch.cat([bits(x)[:, :, None] for x in c], 2), 1, i),
+        ccols, [P], cidx))
+    return out
+
+
 def tracker_rows_case(rng, dev, B, CL, R, fill):
     """The regimes of tests/test_tracker_kernel.py: tables at occupancy
     ``fill`` (some zombies), [B, R] rows near existing clusters (matches,
@@ -444,6 +610,14 @@ def phase_kernels(out, rate):
     ok &= check("flat_gather[p4]", fg.flat_gather_fields(p4, i2),
                 fg.flat_gather_fields_plain(p4, i2))
 
+    # the three pack sites, read in place; library: the old pack plus one
+    # library gather (index_select / torch.gather) in the same run
+    for label, kfn, pfn, lfn, cols, lens, idx in pack_sites(rng, dev):
+        name = "flat_gather" if idx.dim() == 1 else "row_gather"
+        ok &= report(out["kernel_shapes"], name, kfn(), pfn(), rate, kfn,
+                     pfn, lfn, nbytes=cols_bytes(cols, lens, idx),
+                     key=f"{name}[{label.split(' F=')[0]}]", shape=label)
+
     # pair count
     a, b = pair_case(rng, dev)
     na, nb = B_FULL, 1024
@@ -522,6 +696,11 @@ def phase_kernels(out, rate):
             nbytes=gather_bytes(tbl, idx, shared=B is None),
             key=None if head else f"row_gather[{label}]",
             shape=f"{label}: tbl {tuple(tbl.shape)} idx {tuple(idx.shape)}")
+    ring = torch.from_numpy(rand32(rng, (64, 1024, RING), True)).to(dev)
+    ri = torch.from_numpy(rng.integers(-3, 1027, (64, 1024)).astype(
+        np.int32)).to(dev)
+    ok &= check("row_gather[ring F=23, two launches]", mg.row_gather(ring, ri),
+                mg.row_gather_plain(ring, ri))
     fl = [torch.from_numpy(rng.integers(-2**31, 2**31 - 1, (64, 1024, 9),
                                         dtype=np.int64).astype(np.int32)
                            ).to(dev)]
@@ -971,7 +1150,7 @@ def phase_real(out, rate):
     captured = {"tracker_fold": [], "ring_assemble": [], "pair_counts": [],
                 "flat_gather": []}
     orig = (pooled.tracker_run_compact, pooled.ring_assemble,
-            pooled.pair_counts, pooled.flat_gather_fields)
+            pooled.pair_counts, pooled.flat_gather_cols)
 
     def cap_tracker(*a):
         if len(captured["tracker_fold"]) < 3 and int(a[6].sum()) > 0:
@@ -991,19 +1170,19 @@ def phase_real(out, rate):
                 (a[0].clone(), a[1].clone(), a[2], a[3]))
         return orig[2](*a)
 
-    def cap_gather(tbl, idx):
-        if len(captured["flat_gather"]) < 8:
-            captured["flat_gather"].append((tbl.clone(), idx.clone()))
-        return orig[3](tbl, idx)
+    def cap_gather(cols, idx, lens=None):
+        if len(captured["flat_gather"]) < 9:
+            captured["flat_gather"].append((keep(cols), idx.clone(), lens))
+        return orig[3](cols, idx, lens)
 
     pooled.tracker_run_compact, pooled.ring_assemble = cap_tracker, cap_ring
-    pooled.pair_counts, pooled.flat_gather_fields = cap_pairs, cap_gather
+    pooled.pair_counts, pooled.flat_gather_cols = cap_pairs, cap_gather
     warm = [_Read(r.id, r.signal) for r in sim[:8]]
     t0 = time.time()
     n_warm = sum(1 for _ in bm.map_reads(warm))
     log(f"[4] warm-up: {n_warm} reads in {time.time() - t0:.2f} s")
     (pooled.tracker_run_compact, pooled.ring_assemble, pooled.pair_counts,
-     pooled.flat_gather_fields) = orig
+     pooled.flat_gather_cols) = orig
 
     ok = True
     for name, calls in captured.items():
@@ -1016,14 +1195,17 @@ def phase_real(out, rate):
             elif name == "pair_counts":
                 got, want = fg.pair_counts(*a), fg.pair_counts_plain(*a)
             else:
-                got, want = fg.flat_gather_fields(*a), \
-                    fg.flat_gather_fields_plain(*a)
+                got, want = fg.flat_gather_cols(*a), \
+                    fg.flat_gather_cols_plain(*a)
             torch.cuda.synchronize()
             eq = same_bits(got, want)
             ok &= eq
             log(f"[4] captured {name}#{i}: "
                 f"{'bit-equal' if eq else 'MISMATCH'}")
         ok &= bool(calls)
+    # the step's nine column gathers, the unified record table among them
+    ok &= any(len(c[0]) == 5 for c, _, _ in captured["flat_gather"]
+              if isinstance(c[0], list))
 
     # the timed run
     truth = {r.id: (r.ref_name, r.ref_start, r.ref_end, r.fwd) for r in sim}
@@ -1096,25 +1278,25 @@ def phase_classic(out):
         f"CL={p.CL} T={bm.T} ladder {conf.engine.remap_ladder}")
 
     # capture live kernel inputs during the warm-up run
-    captured = {"row_gather": [], "row_gather_fields": [],
+    captured = {"row_gather": [], "row_gather_cols": [],
                 "shared_gather": [], "tracker_fold_rows": []}
-    orig = (engine.row_gather, engine.row_gather_fields,
+    orig = (engine.row_gather, engine.row_gather_cols,
             engine.shared_gather, tk.tracker_run)
 
-    def keep(name, n, args):
+    def hold(name, n, args):
         if len(captured[name]) < n:
-            captured[name].append(tuple(a.clone() for a in args))
+            captured[name].append(tuple(keep(a) for a in args))
 
     def cap_rg(tbl, idx):
-        keep("row_gather", 3, (tbl, idx))
+        hold("row_gather", 4, (tbl, idx))
         return orig[0](tbl, idx)
 
-    def cap_rgf(tbl, idx):
-        keep("row_gather_fields", 8, (tbl, idx))
-        return orig[1](tbl, idx)
+    def cap_rgc(cols, idx, lens=None):
+        hold("row_gather_cols", 8, (cols, idx, lens))
+        return orig[1](cols, idx, lens)
 
     def cap_sg(tbl, idx):
-        keep("shared_gather", 2, (tbl, idx))
+        hold("shared_gather", 2, (tbl, idx))
         return orig[2](tbl, idx)
 
     def cap_tracker(*a):
@@ -1124,20 +1306,19 @@ def phase_classic(out):
                  *[x.clone() for x in a[2:]]))
         return orig[3](*a)
 
-    engine.row_gather, engine.row_gather_fields = cap_rg, cap_rgf
+    engine.row_gather, engine.row_gather_cols = cap_rg, cap_rgc
     engine.shared_gather, tk.tracker_run = cap_sg, cap_tracker
     warm = [_Read(r.id, r.signal) for r in sim[:8]]
     t0 = time.time()
     n_warm = sum(1 for _ in bm.map_reads(warm))
     log(f"[5] warm-up: {n_warm} reads in {time.time() - t0:.2f} s")
-    (engine.row_gather, engine.row_gather_fields, engine.shared_gather,
+    (engine.row_gather, engine.row_gather_cols, engine.shared_gather,
      tk.tracker_run) = orig
 
     ok = True
     pairs = {
         "row_gather": (mg.row_gather, mg.row_gather_plain),
-        "row_gather_fields": (mg.row_gather_fields,
-                              mg.row_gather_fields_plain),
+        "row_gather_cols": (mg.row_gather_cols, mg.row_gather_cols_plain),
         "shared_gather": (mg.shared_gather, mg.shared_gather_plain),
         "tracker_fold_rows": (tk.tracker_run, tk.tracker_run_plain),
     }
@@ -1145,14 +1326,14 @@ def phase_classic(out):
         fn, plain = pairs[name]
         for i, a in enumerate(calls):
             got, want = fn(*a), plain(*a)
-            if name == "row_gather_fields":
-                want = [w.contiguous() for w in want]
             torch.cuda.synchronize()
             eq = same_bits(got, want)
             ok &= eq
             log(f"[5] captured {name}#{i}: "
                 f"{'bit-equal' if eq else 'MISMATCH'}")
         ok &= bool(calls)
+    # the step's threshold-and-prob table as two segment tables
+    ok &= any(isinstance(a[0], list) for a in captured["row_gather"])
 
     # the timed run
     truth = {r.id: (r.ref_name, r.ref_start, r.ref_end, r.fwd) for r in sim}
@@ -1325,9 +1506,11 @@ def phase_defaults(out):
 def profile_block(bm, reads):
     """One block of T events with every slot live, timed plain and then
     traced with torch.profiler: wall per step, device kernel time per step,
-    CUDA kernels per step, the top kernels.  ``idle_share`` is the device's
-    idle share of the untraced wall time; tracing slows the host's issue,
-    so ``idle_share_traced`` (of the traced kernel span) reads higher."""
+    CUDA kernels per step, the top kernels, and the device time per step
+    of the column gathers and of every ``torch.cat`` copy left in the
+    step.  ``idle_share`` is the device's idle share of the untraced wall
+    time; tracing slows the host's issue, so ``idle_share_traced`` (of the
+    traced kernel span) reads higher."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1360,6 +1543,10 @@ def profile_block(bm, reads):
         k = e.get("name", "?")[:60]
         by_name[k] = by_name.get(k, 0.0) + float(e.get("dur", 0))
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+
+    def family_ms(tag):
+        return sum(v for k, v in by_name.items() if tag in k) / 1e3 / T
+
     starts = [float(e["ts"]) for e in kern]
     ends = [float(e["ts"]) + float(e.get("dur", 0)) for e in kern]
     span_ms = (max(ends) - min(starts)) / 1e3 if kern else 0.0
@@ -1373,6 +1560,8 @@ def profile_block(bm, reads):
         kernels_per_step=len(kern) / T,
         copies_per_step=len(copies) / T,
         top_kernels_ms_per_step=[(k, v / 1e3 / T) for k, v in top],
+        gather_cols_ms_per_step=family_ms("gather_cols_kernel"),
+        cat_ms_per_step=family_ms("CatArrayBatchedCopy"),
     )
 
 

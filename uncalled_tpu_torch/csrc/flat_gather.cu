@@ -1,40 +1,29 @@
 // Flat shared-table gather and pair count for the pooled step (Hopper, sm_90a).
 //
 // Replaces:
-//   flat_gather_fields_i32 <- uncalled_tpu/ops/flat_gather.py:_kernel (the
+//   flat_gather_cols_i32 <- uncalled_tpu/ops/flat_gather.py:_kernel (the
 //     two-level MXU one-hot gather, reached through _gather_i32 by
-//     flat_gather / flat_gather_fields from pooled._flat_take/_flat_pack)
-//   pair_counts_i32        <- uncalled_tpu/ops/flat_gather.py:_count_kernel
+//     flat_gather / flat_gather_fields from pooled._flat_take and by the
+//     pooled step's field packs, now flat_gather_cols)
+//   pair_counts_i32      <- uncalled_tpu/ops/flat_gather.py:_count_kernel
 //     (the int8 one-hot pair-count contraction, pair_counts)
 //
-// Bound on the card: device memory.  The gather does no arithmetic; it
-// moves one 4-byte field per output element, and the table reads are
-// scattered (each gathered row touches its own 32-byte sector).  The TPU
-// needed the one-hot scheme because its gather was slow per index; here
-// the design is the direct one: one thread per output element (f, k),
-// threads of a warp on consecutive k, so index reads and output writes
-// coalesce and only the table reads scatter (rows are 4-40 bytes wide:
-// one sector each).  The pair count is a histogram of a few hundred
-// thousand keys into 1 MB of int32 counters (it lives in L2): one thread
-// per key, one int32 atomicAdd per in-domain key — integer atomics, so the
+// The gather is the column-descriptor gather of gather.cuh with one batch
+// row: out[f, k] = col_f[clamp(idx[k], 0, N-1)].  Bound on the card: bytes,
+// and for its scattered rows the L2's latency (each field was written by
+// the op just before, so it sits in the 50 MB L2).  The TPU needed the
+// one-hot scheme because its gather was slow per index; the card gathers
+// directly.  One thread per index reads its row once, with all F loads in
+// flight before its stores (16-byte loads where four 32-bit fields sit
+// side by side), so no row is fetched once per field; and the columns are
+// read where they lie (a packed table's field, a strided view, a bool, a
+// segment of several tensors and constants), so no caller copies its
+// fields into a packed table first.  The pair count is a histogram of a
+// few hundred thousand keys into 1 MB of int32 counters (in L2): one thread
+// per key, one int32 atomicAdd per in-domain key -- integer atomics, so the
 // result is the same in any order.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-// out[f * K + k] = tbl[clamp(idx[k], 0, N-1) * F + f]   (fields-major [F, K])
-__global__ void flat_gather_kernel(const int32_t* __restrict__ tbl, int N,
-                                   int F, const int32_t* __restrict__ idx,
-                                   int K, int32_t* __restrict__ out) {
-  long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  long long total = (long long)K * F;
-  if (t >= total) return;
-  int f = (int)(t / K);
-  int k = (int)(t - (long long)f * K);
-  int i = idx[k];
-  i = i < 0 ? 0 : (i > N - 1 ? N - 1 : i);
-  out[t] = tbl[(long long)i * F + f];
-}
+#include "gather.cuh"
 
 // out[a[c] * nb + b[c]] += 1 for keys inside [0, na) x [0, nb)
 __global__ void pair_counts_kernel(const int32_t* __restrict__ a,
@@ -49,16 +38,9 @@ __global__ void pair_counts_kernel(const int32_t* __restrict__ a,
   }
 }
 
-extern "C" int flat_gather_fields_i32(const void* tbl, int N, int F,
-                                      const void* idx, int K, void* out,
-                                      void* stream) {
-  long long total = (long long)K * F;
-  if (total == 0) return 0;
-  const int threads = 256;
-  long long blocks = (total + threads - 1) / threads;
-  flat_gather_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)tbl, N, F, (const int32_t*)idx, K, (int32_t*)out);
-  return (int)cudaGetLastError();
+extern "C" int flat_gather_cols_i32(const long long* meta, const void* idx,
+                                    void* out, void* stream) {
+  return gather_cols_launch(meta, idx, out, stream);
 }
 
 extern "C" int pair_counts_i32(const void* a, const void* b, int K, int na,

@@ -31,7 +31,7 @@ from ..config import Conf
 from ..convert import index_from_numpy
 from ..device import resolve
 from ..kmer import KMER_COUNT
-from ..ops.mxu_gather import row_gather, row_gather_fields, shared_gather
+from ..ops.mxu_gather import row_gather, row_gather_cols, shared_gather
 
 I32, F32, F64 = torch.int32, torch.float32, torch.float64
 INT32_MAX = 2**31 - 1
@@ -527,30 +527,6 @@ def _compact_idx(valid, w_out):
     return skey.clamp(max=W - 1), skey < W
 
 
-def _pack_gather(fields, idx2d, rings=()):
-    """Gather many same-shape [B, W] per-slot fields at idx2d [B, K] with ONE
-    row gather (f32 fields move as their bits, bools as int32); ``rings``
-    are [B, W, k] f32 arrays packed as k extra columns each.  Returns the
-    unpacked fields, then the gathered [B, K, k] rings."""
-    blocks = [
-        (f.view(I32) if f.dtype == F32 else f.to(I32))[:, :, None]
-        for f in fields
-    ] + [r.view(I32) for r in rings]
-    g = row_gather_fields(torch.cat(blocks, 2), idx2d)
-    out = []
-    for f, v in zip(fields, g):
-        if f.dtype == F32:
-            v = v.view(F32)
-        elif f.dtype == torch.bool:
-            v = v != 0
-        out.append(v)
-    at = len(fields)
-    for r in rings:
-        out.append(torch.stack(g[at: at + r.shape[2]], 2).view(F32))
-        at += r.shape[2]
-    return out
-
-
 def _sort_perm(k1, k2, kf):
     """Row-wise permutation of ``lax.sort((k1, k2, kf, iota), dimension=1,
     num_keys=4)``: ascending by the int32 keys k1, k2, then the f32 key kf
@@ -616,12 +592,11 @@ def _event_step(idx, p: EngineParams, st, ev, ev_on):
     fmlen = st["p_end"] - st["p_start"] + 1
     # one F=4 gather of 3P rows: a path's 4 move probs are one row of
     # probs viewed [B, 256, 4]; the stay prob and the fm-bin threshold are
-    # one lane of such a row (thresholds appended after the prob rows)
+    # one lane of such a row (thresholds after the prob rows: a second
+    # segment, shared by every read)
     NT4 = idx["threshes"].shape[0] // 4
-    tbl4 = torch.cat(
-        [probs.reshape(B, KQ, 4),
-         idx["threshes"].reshape(NT4, 4)[None].expand(B, NT4, 4)], 1
-    )
+    tbl4 = [probs.reshape(B, KQ, 4),
+            idx["threshes"].reshape(NT4, 4)[None].expand(B, NT4, 4)]
     fm_bin = _fm_bin(fmlen)
     allk3 = torch.cat(
         [st["p_kmer"] >> 2, st["p_kmer"] & (KQ - 1), KQ + (fm_bin >> 2)], 1
@@ -650,7 +625,7 @@ def _event_step(idx, p: EngineParams, st, ev, ev_on):
         st["p_total"] + 1 >= SL, (st["p_total"] + 1 - SL) % RING, 0
     )
     wstart_p = _ring_read(st["p_cum"], wslot_p)
-    cs, ce, ck, ctot, ccons, cmvs, csa, ccum, cwst = _pack_gather(
+    cs, ce, ck, ctot, ccons, cmvs, csa, ccum, cwst = row_gather_cols(
         [st["p_start"], st["p_end"], st["p_kmer"], st["p_total"],
          st["p_consec"], st["p_moves"], st["p_sa"], cumnow_p, wstart_p],
         cpar_g,
@@ -710,7 +685,7 @@ def _event_step(idx, p: EngineParams, st, ev, ev_on):
     k1 = torch.where(cvalid, ns, INT32_MAX)
     k2 = torch.where(cvalid, ne, INT32_MAX)
     perm = _sort_perm(k1, k2, seedprob)
-    ns_s, ne_s, seedprob_s, nk_s, prob_s, ntot_s, nmoves_s = _pack_gather(
+    ns_s, ne_s, seedprob_s, nk_s, prob_s, ntot_s, nmoves_s = row_gather_cols(
         [k1, k2, seedprob, nk, prob, new_tot, nmoves], perm
     )
     svalid = ns_s != INT32_MAX
@@ -751,7 +726,7 @@ def _event_step(idx, p: EngineParams, st, ev, ev_on):
         out_int32=True,
     ).clamp(max=P + CE - 1)
     row_ok = (row_ids[None, :] < total_rows[:, None]) & alive[:, None]
-    g_cum_prev, g_st_g, row_mc, row_evt = _pack_gather(
+    g_cum_prev, g_st_g, row_mc, row_evt = row_gather_cols(
         [torch.cat([torch.zeros((B, 1), dtype=I32, device=dev),
                     g_cum[:, :-1]], 1), g_st, g_mc, g_evt],
         grp,
@@ -831,24 +806,24 @@ def _event_step(idx, p: EngineParams, st, ev, ev_on):
     out_j = iota(P)[None, :]
     as_child = child_ok
     k_src = (out_j - n_cands[:, None]).clamp(0, P - 1)
-    src_of, src_hit = _pack_gather([src_src, src_ok], k_src)
+    src_of, src_hit = row_gather_cols([src_src, src_ok], k_src)
     src_okj = src_hit & (out_j >= n_cands[:, None])
     # child fields in two hops: sorted-order fields by child_src, then
     # candidate-order fields by the composed index ci = perm[child_src]
-    c_start, c_end, c_kmer, c_tot, c_mvs, c_seedc, ci = _pack_gather(
+    c_start, c_end, c_kmer, c_tot, c_mvs, c_seedc, ci = row_gather_cols(
         [ns_s, ne_s, nk_s, ntot_s, nmoves_s, seed_c, perm], child_src
     )
-    c_cons, c_sa0, c_newcum, c_par = _pack_gather(
+    c_cons, c_sa0, c_newcum, c_par = row_gather_cols(
         [nconsec, csa, newcum, cpar_g], ci
     )
     c_sa = c_sa0 | c_seedc
-    (child_ring0,) = _pack_gather([], c_par, rings=[st["p_cum"]])
+    child_ring0 = row_gather(st["p_cum"], c_par)  # [B, P, RING]
     ring_iota = iota(RING)[None, None, :]
     child_ring = torch.where(
         ring_iota == (c_tot % RING)[:, :, None], c_newcum[:, :, None],
         child_ring0,
     )
-    s_start, s_end, s_kmer, s_prob = _pack_gather(
+    s_start, s_end, s_kmer, s_prob = row_gather_cols(
         [src_start, src_end, src_kmer, src_prob], src_of
     )
     # a source's ring is zeros with slot 1 = prob, built as the JAX step

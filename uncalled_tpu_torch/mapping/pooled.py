@@ -10,7 +10,8 @@ dict of tensors with the JAX state's keys and dtypes, and every event
 leaves it bit-identical to the JAX step's (tests/test_torch_pooled_step.py).
 
 On the card five hand-written CUDA kernels carry the step: the flat
-gather behind every ``_flat_take``/``_flat_pack``, the per-read k-mer
+gather behind every ``_flat_take`` and ``flat_gather_cols`` (which reads
+the fields it gathers where they lie, with no pack), the per-read k-mer
 pair count, the ring assembly, the compact seed-tracker fold and, in the
 bitonic candidate sort, the merge level.  The step does no host
 synchronisation: every shape is static.
@@ -32,7 +33,7 @@ import torch
 from ..config import Conf
 from ..device import resolve
 from ..kmer import KMER_COUNT
-from ..ops.flat_gather import flat_gather, flat_gather_fields, pair_counts
+from ..ops.flat_gather import flat_gather, flat_gather_cols, pair_counts
 from ..ops.sortkern import merge_level
 from ..ops.stepkern import ring_assemble
 from ..ops.tracker_kernel import tracker_run_compact
@@ -329,28 +330,6 @@ def _flat_take(tbl, idx):
     return flat_gather(tbl.contiguous(), idx.contiguous())
 
 
-def _flat_pack(fields, idx):
-    """Gather many same-length flat fields with ONE row gather (f32 fields
-    move as their bits, bools as int32; unpacked on return)."""
-    cols, kinds = [], []
-    for f in fields:
-        if f.dtype == F32:
-            cols.append(f.view(I32))
-        else:
-            cols.append(f.to(I32))
-        kinds.append(f.dtype)
-    g = flat_gather_fields(torch.stack(cols, 1), idx.contiguous())  # [F, K]
-    out = []
-    for k, kind in enumerate(kinds):
-        v = g[k]
-        if kind == F32:
-            v = v.view(F32)
-        elif kind == torch.bool:
-            v = v != 0
-        out.append(v)
-    return out
-
-
 def _bucket_of(starts, w_out):
     """For sorted segment starts [G], the segment id of each output slot
     j in [0, w_out): r[j] = (# starts <= j) - 1."""
@@ -538,7 +517,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     wslot_p = torch.where(q_total + 1 >= SL, (q_total + 1 - SL) % RING, 0)
     wstart_p = _ring_read(q_cum, wslot_p)
     (cs, ce_, ck, ctot, ccons, cmvs, csa, ccum, cwst,
-     cp_stay, cp_m0, cp_m1, cp_m2, cp_m3) = _flat_pack(
+     cp_stay, cp_m0, cp_m1, cp_m2, cp_m3) = flat_gather_cols(
         [q_start, q_end, q_kmer, q_total, q_consec, q_moves, q_sa, cumnow_p,
          wstart_p, stay_p, mv_p[:, 0], mv_p[:, 1], mv_p[:, 2], mv_p[:, 3]],
         cpar_g,
@@ -638,7 +617,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     ns_s, ne_s, seedprob_s = k1s, k2s, k3s
     rid_s = rks.clamp(max=B - 1)
     (nk_s, prob_s, ntot_s, nmoves_s, ncons_s, csa_s, newcum_s,
-     cpar_s) = _flat_pack(
+     cpar_s) = flat_gather_cols(
         [nk, prob, new_tot, nmoves, nconsec, csa, newcum, cpar_g], perm,
     )
 
@@ -691,7 +670,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     e_j = iota(RE)
     e_b = _bucket_of(off_ent[:-1], RE).clamp(0, B - 1)
     e_ok = e_j < n_ent.clamp(max=RE)
-    eb_off, eb_end, eb_endst, eb_sdst = _flat_pack(
+    eb_off, eb_end, eb_endst, eb_sdst = flat_gather_cols(
         [off_ent[:-1], ended_r, end_b[:-1], sd_b[:-1]], e_b
     )
     e_r = e_j - eb_off
@@ -699,7 +678,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     src_end = _flat_take(endc_src, (eb_endst + e_r).clamp(0, RE - 1))
     src_sd = _flat_take(sdc_src, (eb_sdst + (e_r - eb_end)).clamp(0, RE - 1))
     eperm = torch.where(e_is_end, src_end, S + src_sd).clamp(0, S + SC - 1)
-    g_rows, g_st, g_mc, g_end = _flat_pack(
+    g_rows, g_st, g_mc, g_end = flat_gather_cols(
         [ent_rows_all, ent_st_all, ent_mc_all, ent_ended], eperm
     )
     g_rid = e_b
@@ -710,7 +689,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     rsrc, r_ok = _compact1d(row_val, RT)
     r_ent = torch.div(rsrc, MRC, rounding_mode="trunc")
     r_off = torch.remainder(rsrc, MRC)
-    rr_rid, rr_st, rr_mc, rr_end = _flat_pack(
+    rr_rid, rr_st, rr_mc, rr_end = flat_gather_cols(
         [g_rid, g_st, g_mc, g_end], r_ent
     )
     rr_rid = torch.where(r_ok, rr_rid, B)
@@ -744,7 +723,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     seg_id = _csum(first_seg)
     run_end = _seg_running_max(seg_id, ne_s)
 
-    km_st, km_en = _flat_pack([idx["kmer_st"], idx["kmer_en"]], nk_s)
+    km_st, km_en = flat_gather_cols([idx["kmer_st"], idx["kmer_en"]], nk_s)
     head_st = km_st
     head_en = ns_s - 1
     head_v = first_seg & kpass & (head_st <= head_en)
@@ -838,7 +817,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     # row to copy the prob ring from; -1 = zeros), ringslot (ring slot to
     # overwrite; -1 = none), ringval.
     fkm_full = f_kmer.reshape(B * FS)
-    f_st_full, f_en_full = _flat_pack(
+    f_st_full, f_en_full = flat_gather_cols(
         [idx["kmer_st"], idx["kmer_en"]], fkm_full
     )
     f_rid_full = torch.div(iota(B * FS), FS, rounding_mode="trunc")
@@ -848,31 +827,24 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     NU = 3 * SC + B * FS + S
     BFS = B * FS
 
-    def ucol(a_part, h_part, f_part, d_part):
-        return torch.cat([a_part, h_part, f_part, d_part])
-
-    u_start = ucol(ns_s, torch.cat([head_st, gap_st]), f_st_full, q_start)
-    u_end = ucol(ne_s, torch.cat([head_en, gap_en]), f_en_full, q_end)
-    u_kmer = ucol(nk_s, torch.cat([nk_s, nk_s]), fkm_full, q_kmer)
-    u_total = ucol(ntot_s, full(2 * SC, 1), full(BFS, 1), q_total)
-    u_consec = ucol(ncons_s, full(2 * SC, 0), full(BFS, 0), q_consec)
-    u_moves = ucol(nmoves_s, full(2 * SC, 1), full(BFS, 1), q_moves)
-    u_sa = ucol((csa_s | seed_c).to(I32), full(2 * SC, 0), full(BFS, 0),
-                q_sa.to(I32))
-    u_ringsrc = ucol(cpar_s, full(2 * SC, -1), full(BFS, -1), iota(S))
-    u_ringslot = ucol(ntot_s % RING, full(2 * SC, 1), full(BFS, 1),
-                      full(S, -1))
-    u_ringval = ucol(newcum_s, torch.cat([prob_s, prob_s]), f_prob_full,
-                     full(S, 0.0, F32))
-
+    # each column in its five segments A = SC, H = 2 * SC (head, gap),
+    # F = BFS, D = S, read where they lie; fills are segment constants
     src_u = torch.where(
         cls_A | cls_H, idx_AH,
         torch.where(cls_F, 3 * SC + idx_F, 3 * SC + BFS + idx_D),
     )
     (g_start, g_end, g_kmer, g_total, g_consec, g_moves, g_sa, g_rsrc,
-     g_rslot, g_rval) = _flat_pack(
-        [u_start, u_end, u_kmer, u_total, u_consec, u_moves, u_sa,
-         u_ringsrc, u_ringslot, u_ringval],
+     g_rslot, g_rval) = flat_gather_cols(
+        [[ns_s, head_st, gap_st, f_st_full, q_start],
+         [ne_s, head_en, gap_en, f_en_full, q_end],
+         [nk_s, nk_s, nk_s, fkm_full, q_kmer],
+         [ntot_s, 1, 1, 1, q_total],
+         [ncons_s, 0, 0, 0, q_consec],
+         [nmoves_s, 1, 1, 1, q_moves],
+         [csa_s | seed_c, False, False, False, q_sa],
+         [cpar_s, -1, -1, -1, iota(S)],
+         [ntot_s % RING, 1, 1, 1, -1],
+         [newcum_s, prob_s, prob_s, f_prob_full, 0.0]],
         src_u.clamp(max=NU - 1),
     )
 
@@ -886,7 +858,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     out["q_total"] = torch.where(keep, g_total, 0)
     out["q_consec"] = torch.where(keep, g_consec, 0)
     out["q_moves"] = torch.where(keep, g_moves, 0)
-    out["q_sa"] = keep & (g_sa > 0)
+    out["q_sa"] = keep & g_sa
     out["q_cum"] = nq_cum
     out["n_paths"] = kept_r
     for k, v in tstate.items():
@@ -965,7 +937,7 @@ def migrate_pool_state(src_p: PoolParams, dst_p: PoolParams, state, sel):
     ok = j < new_off[-1]
     flds = ["q_start", "q_end", "q_kmer", "q_total", "q_consec", "q_moves",
             "q_sa"]
-    got = _flat_pack([state[f] for f in flds], src_idx)
+    got = flat_gather_cols([state[f] for f in flds], src_idx)
     for f, g in zip(flds, got):
         out[f] = ok & g if f == "q_sa" else torch.where(ok, g, fresh[f])
     out["q_rid"] = torch.where(ok, k_read, Bd)

@@ -14,6 +14,7 @@ it launches the kernel, so a run can show the main path went through it.
 
 from __future__ import annotations
 
+import array
 import ctypes
 import os
 import shutil
@@ -32,15 +33,16 @@ NVCC_FLAGS = (
 )
 
 # C launcher -> (source stem, argument kinds): p = device pointer,
-# i = int, a = host array of device pointers; every launcher ends with
-# the stream argument.
+# i = int, a = host array of device pointers, q = host array of int64
+# (device pointers, sizes, strides, bounds, constants); every launcher
+# ends with the stream argument.
 _FUNCS = {
-    "flat_gather_fields_i32": ("flat_gather", "piipip"),
+    "flat_gather_cols_i32": ("flat_gather", "qpp"),
     "pair_counts_i32": ("flat_gather", "ppiiip"),
     "ring_assemble_i32": ("stepkern", "ppppppii"),
     "tracker_fold_compact": ("tracker_kernel", "aiiii"),
     "tracker_fold_rows": ("tracker_kernel", "aiiii"),
-    "row_gather_i32": ("row_gather", "piiipiip"),
+    "row_gather_cols_i32": ("row_gather", "qpp"),
     "merge_level_i32": ("sortkern", "aiiii"),
 }
 
@@ -78,12 +80,13 @@ def _nvcc() -> str:
 
 def build() -> dict:
     """Compile every ``csrc/*.cu`` whose library is missing or older than
-    its source (one nvcc each, in parallel); returns stem -> .so path."""
+    its source or a ``csrc/*.cuh`` header (one nvcc each, in parallel);
+    returns stem -> .so path."""
     global build_seconds
     os.makedirs(BUILD_DIR, exist_ok=True)
-    stems = sorted(
-        f[:-3] for f in os.listdir(SRC_DIR) if f.endswith(".cu")
-    )
+    names = os.listdir(SRC_DIR)
+    stems = sorted(f[:-3] for f in names if f.endswith(".cu"))
+    headers = [os.path.join(SRC_DIR, f) for f in names if f.endswith(".cuh")]
     t0 = time.time()
     procs = {}
     out = {}
@@ -91,7 +94,8 @@ def build() -> dict:
         src = os.path.join(SRC_DIR, stem + ".cu")
         so = os.path.join(BUILD_DIR, f"lib{stem}.so")
         out[stem] = so
-        if os.path.exists(so) and os.path.getmtime(so) >= os.path.getmtime(src):
+        newest = max(os.path.getmtime(f) for f in [src, *headers])
+        if os.path.exists(so) and os.path.getmtime(so) >= newest:
             continue
         log = open(os.path.join(BUILD_DIR, stem + ".log"), "w")
         procs[stem] = (
@@ -141,12 +145,15 @@ def _arg(kind, v):
     if kind == "a":
         arr = (ctypes.c_void_p * len(v))(*[t.data_ptr() for t in v])
         return arr
+    if kind == "q":  # one buffer copy, no per-element ctypes conversion
+        return (ctypes.c_longlong * len(v)).from_buffer(array.array("q", v))
     return ctypes.c_int(int(v))
 
 
 def launch(name: str, *args) -> None:
     """Call C launcher ``name`` with tensors (``p``), lists of tensors
-    (``a``) and ints (``i``) on the current stream; raise on a CUDA error."""
+    (``a``), lists of ints (``q``) and ints (``i``) on the current stream;
+    raise on a CUDA error."""
     stem, kinds = _FUNCS[name]
     fn = getattr(_lib(stem), name)
     if len(args) != len(kinds):

@@ -7,8 +7,12 @@ on the CPU and launches the kernel for tensors on the card, where it
 raises on anything the kernel does not take; there is no fallback.
 
 The TPU computed the gather as two one-hot MXU contractions and the pair
-count as an int8 one-hot matmul; on the card both are direct: one thread
-per gathered element, one int32 atomic per counted key.
+count as an int8 one-hot matmul; on the card both are direct.  The gather
+is the column-descriptor gather of ``colgather``: ``flat_gather_cols``
+reads fields where they lie (views, bools, segments and constants), and
+``flat_gather_fields`` / ``flat_gather`` are its packed-table case (the F
+strided columns of one [N, F] table).  The pair count is one int32 atomic
+per counted key.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from . import _cuda
+from . import colgather as cg
 
 I32, F32 = torch.int32, torch.float32
 
@@ -32,16 +37,29 @@ def flat_gather_fields(tbl, idx):
     so ``out[f]`` is a contiguous field."""
     if tbl.device.type == "cpu":
         return flat_gather_fields_plain(tbl, idx)
-    _cuda.check(tbl, "flat_gather.tbl", (I32, F32), 2, tbl.device)
-    _cuda.check(idx, "flat_gather.idx", (I32,), 1, tbl.device)
-    N, F = tbl.shape
-    if N == 0:
-        raise ValueError("flat_gather: empty table")
-    K = idx.shape[0]
-    out = torch.empty((F, K), dtype=I32, device=tbl.device)
-    _cuda.launch("flat_gather_fields_i32", tbl.view(I32), N, F, idx, K, out)
-    _cuda.COUNTS["flat_gather"] += 1
-    return out.view(tbl.dtype)
+    if tbl.dtype not in (I32, F32) or tbl.dim() != 2:
+        raise TypeError(f"flat_gather: {tbl.dim()}-D {tbl.dtype} table "
+                        "(2-D int32 or float32)")
+    return cg.gather_table("flat_gather", [tbl], idx).view(tbl.dtype)
+
+
+def flat_gather_cols_plain(cols, idx, lens=None):
+    segs, dtypes, lens = cg.describe(cols, idx, rows=False, lens=lens)
+    tbl = cg.pack_plain(segs, lens, idx.device)
+    return cg.unpack(flat_gather_fields_plain(tbl, idx), dtypes)
+
+
+def flat_gather_cols(cols, idx, lens=None):
+    """Gather F <= 16 columns of one shared flat table at [K] int32
+    indices (clamped) with one launch, reading each column where it lies:
+    ``out[f][k] = col_f[clamp(idx[k], 0, N-1)]``.  A column is an [N]
+    tensor of any strides (int32, float32 or bool) or a list of segments
+    ([Ns] tensors or scalar constants, the same lengths in every column;
+    see ``colgather``).  Returns the F gathered [K] columns, each in its
+    column's dtype."""
+    if idx.device.type == "cpu":
+        return flat_gather_cols_plain(cols, idx, lens)
+    return cg.unpack(*cg.gather("flat_gather", cols, idx, lens))
 
 
 def flat_gather(tbl, idx):

@@ -7,6 +7,10 @@ list of its F fields, each [B, K] (fields-major is the kernel's layout).
 Tables are f32, int32 or bool; f32 moves as its raw 32-bit pattern, so NaN
 payloads and -0.0 survive.
 
+``row_gather_cols``: the column-descriptor form (``colgather``): F <= 16
+columns read where they lie (views, bools, shared and per-row segments,
+constants); the table forms above are its packed-table case.
+
 Each function is a plain PyTorch version plus the hand-written CUDA kernel
 ``csrc/row_gather.cu``.  The wrapper runs the plain version for tensors on
 the CPU and launches the kernel for tensors on the card, for every table
@@ -18,12 +22,14 @@ from __future__ import annotations
 
 import torch
 
-from . import _cuda
+from . import colgather as cg
 
 I32, F32 = torch.int32, torch.float32
 
 
 def row_gather_plain(tbl, idx):
+    if isinstance(tbl, (list, tuple)):  # segment tables, end to end
+        tbl = torch.cat(tbl, 1) if len(tbl) > 1 else tbl[0]
     ix = idx.clamp(0, tbl.shape[1] - 1).to(torch.int64)
     if tbl.dim() == 3:
         ix = ix[:, :, None].expand(-1, -1, tbl.shape[2])
@@ -42,15 +48,10 @@ def row_gather_fields_plain(tbl, idx):
     return [g[:, :, f] for f in range(tbl.shape[2])]
 
 
-def _to_i32(t):
-    if t.dtype == F32:
-        return t.view(I32)
-    if t.dtype == torch.bool:
-        return t.to(I32)
-    if t.dtype == I32:
-        return t
-    raise TypeError(f"row_gather: unsupported dtype {t.dtype} "
-                    "(float32/int32/bool)")
+def row_gather_cols_plain(cols, idx, lens=None):
+    segs, dtypes, lens = cg.describe(cols, idx, rows=True, lens=lens)
+    tbl = cg.pack_plain(segs, lens, idx.device, B=idx.shape[0])
+    return cg.unpack(row_gather_plain(tbl, idx).permute(2, 0, 1), dtypes)
 
 
 def _from_i32(t, dtype):
@@ -61,35 +62,24 @@ def _from_i32(t, dtype):
     return t
 
 
-def _gather_i32(tbl, idx, shared: bool):
-    """Kernel launch: tbl [B, N, F] (or [N, F] when ``shared``) int32,
-    idx [B, K] int32 -> [F, B, K] int32."""
-    dev = tbl.device
-    _cuda.check(tbl, "row_gather.tbl", (I32,), 2 if shared else 3, dev)
-    _cuda.check(idx, "row_gather.idx", (I32,), 2, dev)
-    B, K = idx.shape
-    N, F = tbl.shape[-2:]
-    if N == 0:
-        raise ValueError("row_gather: empty table")
-    if not shared and tbl.shape[0] != B:
-        raise ValueError(f"row_gather: table batch {tbl.shape[0]} != {B}")
-    out = torch.empty((F, B, K), dtype=I32, device=dev)
-    _cuda.launch("row_gather_i32", tbl, int(shared), N, F, idx, B, K, out)
-    _cuda.COUNTS["row_gather"] += 1
-    return out
-
-
 def row_gather(tbl, idx):
     """Per-row gather from tbl [B, N] or [B, N, F] at idx [B, K] int32
-    (clamped) -> [B, K] or [B, K, F], the table's dtype."""
-    if tbl.device.type == "cpu":
+    (clamped) -> [B, K] or [B, K, F], the table's dtype.  ``tbl`` may also
+    be a list of segment tables laid end to end along N, each [B, Ns(, F)]
+    (a stride-0 ``expand`` of a shared table reads it once for every row):
+    the kernel reads them where they lie, the plain version concatenates
+    them."""
+    segs = list(tbl) if isinstance(tbl, (list, tuple)) else [tbl]
+    if segs[0].device.type == "cpu":
         return row_gather_plain(tbl, idx)
-    squeeze = tbl.dim() == 2
-    t3 = tbl[:, :, None] if squeeze else tbl
-    out = _from_i32(
-        _gather_i32(_to_i32(t3).contiguous(), idx.contiguous(), False),
-        tbl.dtype,
-    )
+    squeeze = segs[0].dim() == 2
+    if any(t.dim() != segs[0].dim() or t.shape[0] != idx.shape[0]
+           for t in segs):
+        raise ValueError("row_gather: every segment table must be "
+                         "[B, Ns] or [B, Ns, F] with idx's B")
+    out = cg.gather_table(
+        "row_gather", [t[:, :, None] if squeeze else t for t in segs], idx)
+    out = _from_i32(out, segs[0].dtype)
     return out[0] if squeeze else out.permute(1, 2, 0)
 
 
@@ -99,11 +89,8 @@ def shared_gather(tbl, idx):
     if tbl.device.type == "cpu":
         return shared_gather_plain(tbl, idx)
     squeeze = tbl.dim() == 1
-    t2 = tbl[:, None] if squeeze else tbl
-    out = _from_i32(
-        _gather_i32(_to_i32(t2).contiguous(), idx.contiguous(), True),
-        tbl.dtype,
-    )
+    out = _from_i32(cg.gather_table(
+        "row_gather", [tbl[:, None] if squeeze else tbl], idx), tbl.dtype)
     return out[0] if squeeze else out.permute(1, 2, 0)
 
 
@@ -112,4 +99,19 @@ def row_gather_fields(tbl, idx):
     (clamped) -> list of F int32 [B, K] fields."""
     if tbl.device.type == "cpu":
         return row_gather_fields_plain(tbl, idx)
-    return list(_gather_i32(tbl.contiguous(), idx.contiguous(), False))
+    if tbl.dtype != I32:
+        raise TypeError(f"row_gather_fields: {tbl.dtype} table (int32)")
+    return list(cg.gather_table("row_gather", [tbl], idx))
+
+
+def row_gather_cols(cols, idx, lens=None):
+    """Per-row gather of F <= 16 columns at idx [B, K] int32 (clamped) with
+    one launch, reading each column where it lies:
+    ``out[f][b, k] = col_f[b, clamp(idx[b, k], 0, N-1)]``.  A column is a
+    [B, N] tensor of any strides (int32, float32 or bool) or a list of
+    segments ([B, Ns] tensors, [Ns] tensors shared by every row, or scalar
+    constants; the same lengths in every column; see ``colgather``).
+    Returns the F gathered [B, K] columns, each in its column's dtype."""
+    if idx.device.type == "cpu":
+        return row_gather_cols_plain(cols, idx, lens)
+    return cg.unpack(*cg.gather("row_gather", cols, idx, lens))
