@@ -20,7 +20,11 @@ verdict, printed only when every phase passed):
    once packed their fields into a table (pooled parent pack, the
    unified record table's five segments, classic parent pack), each
    against that pack plus one library gather; the whole bitonic sort
-   against the flat sort;
+   against the flat sort; both forms of both tracker folds (the table in
+   shared memory up to CL=8192, in device memory above) at the widths the
+   mappers use, in three occupancy regimes and on an adversarial tie
+   case, with the launches of each form; the timed folds' longest read
+   and microseconds a row;
 3. the 14 golden reads on the example index through ``BatchMapper``, on
    the pooled engine and on the classic engine: every PAF line
    byte-identical to ``tests/fixtures/golden_pafs.json``, with every
@@ -35,7 +39,8 @@ verdict, printed only when every phase passed):
    (reads/s, ms per event step, mapped/correct fractions, ejects per tier,
    launches per kernel per step, peak device memory, the idle share of one
    profiled block); kernel inputs captured from live steps are re-checked
-   against the plain versions bit for bit; every read is yielded;
+   against the plain versions bit for bit, and the fold is timed on the
+   captured step with the longest read; every read is yielded;
 5. classic at real size: the same genome and reads, ``pooled = False`` at
    the conf defaults (B=64, P=1024, C=1024, CE=1280, R=256, CL=1024, T=64
    and the default remap ladder), 8 warm-up + 256 timed reads, with the
@@ -163,9 +168,13 @@ def time_ms(fn, reps=20, warm=3):
     return float(np.median(ts))
 
 
-def trace_events(prof, tag):
-    """Device activity (kernels, memsets, copies) of a torch.profiler run,
-    read from its chrome trace (written under the build directory)."""
+DEVICE_CATS = ("kernel", "gpu_memset", "gpu_memcpy")
+
+
+def trace_events(prof, tag, cats=DEVICE_CATS):
+    """Events of the given categories of a torch.profiler run (by default
+    the device activity: kernels, memsets, copies), read from its chrome
+    trace (written under the build directory; a run exports once)."""
     from uncalled_tpu_torch.ops._cuda import BUILD_DIR
 
     path = os.path.join(BUILD_DIR, f"trace_{tag}.json")
@@ -173,40 +182,122 @@ def trace_events(prof, tag):
     with open(path) as f:
         trace = json.load(f)
     evs = trace["traceEvents"] if isinstance(trace, dict) else trace
-    return [e for e in evs
-            if e.get("cat") in ("kernel", "gpu_memset", "gpu_memcpy")]
+    return [e for e in evs if e.get("cat") in cats]
 
 
-def device_ms(fn, reps=20, tag="call"):
-    """Device milliseconds per call of ``fn()`` (the sum of its kernels,
-    memsets and copies, from the profiler trace over ``reps`` calls) —
-    the card's own time, free of the host's issue time that CUDA events
-    around a short call also catch.  A profiler trace now and then loses
-    some or all of its device events, so traces are taken until three
-    hold the largest event count seen (at most six), and the median over
-    the traces that hold it is returned; it raises when every trace came
-    back empty."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+def window_us(evs, n, cats=DEVICE_CATS):
+    """Split a trace's events of ``cats`` by the ``smoke_window_<i>``
+    annotations (i < n) their start falls in: (events, events inside a
+    window, microseconds of each window).  The annotations' spans on the
+    card's timeline are used where the trace has them; else the host's,
+    shifted so that the first event does not start before window 0 (the
+    two clocks can drift apart over a long process)."""
+    def spans(cat):
+        w = [None] * n
+        for e in evs:
+            name = e.get("name", "")
+            if e.get("cat") == cat and name.startswith("smoke_window_") \
+                    and int(name[13:]) < n:
+                t = float(e["ts"])
+                w[int(name[13:])] = (t, t + float(e["dur"]))
+        return w
 
-    fn()
-    torch.cuda.synchronize()
-    runs = []  # (device events, ms per call) per trace
-    for _ in range(6):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        evs = trace_events(prof, tag)
-        runs.append((len(evs),
-                     sum(float(e.get("dur", 0)) for e in evs) / 1e3 / reps))
-        n_max = max(n for n, _ in runs)
-        full = [ms for n, ms in runs if n == n_max]
+    dev = sorted((e for e in evs if e.get("cat") in cats),
+                 key=lambda e: float(e["ts"]))
+    wins = spans("gpu_user_annotation")
+    if None in wins:
+        wins = spans("user_annotation")
+        if dev and wins[0] is not None:
+            lag = max(0.0, wins[0][0] - float(dev[0]["ts"]))
+            wins = [w and (w[0] - lag, w[1] - lag) for w in wins]
+    us = [0.0] * n
+    seen = 0
+    for e in dev:
+        t = float(e["ts"])
+        for i, w in enumerate(wins):
+            if w is not None and w[0] <= t <= w[1]:
+                us[i] += float(e.get("dur", 0))
+                seen += 1
+                break
+    return len(dev), seen, us
+
+
+def _median_of_full(trace, tries=6):
+    """Call ``trace()`` -> (device events, ms per call of each fn, or None
+    for an unusable trace) until three usable traces hold the largest
+    event count seen (at most ``tries``); the median of each fn over
+    those, or None when no trace was usable.  A profiler trace now and
+    then loses device events: a short count marks it."""
+    runs = []
+    for _ in range(tries):
+        n_dev, ms = trace()
+        if n_dev and ms is not None:
+            runs.append((n_dev, ms))
+        n_max = max((n for n, _ in runs), default=0)
+        full = [m for n, m in runs if n == n_max]
         if n_max and len(full) >= 3:
             break
-    if not n_max:
-        raise RuntimeError(f"{tag}: the profiler recorded no device activity")
-    return float(np.median(full))
+    if not runs:
+        return None
+    return [float(np.median([m[i] for m in full]))
+            for i in range(len(full[0]))]
+
+
+def device_ms(fns, tag="call"):
+    """Device milliseconds per call of each ``fn`` of ``fns``, a list of
+    (fn, reps): the sum of the kernels, memsets and copies that start
+    inside its window — the card's own time, free of the host's issue
+    time that CUDA events around a short call also catch.  One profiler
+    session traces every fn in turn, each ``reps`` calls and a synchronize
+    inside a ``record_function`` window of its own; a trace counts when
+    every device event falls in a window.  Where no trace does, each fn
+    is traced in sessions of its own and all their device events count.
+    It raises when no trace held device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    def windows():
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i, (fn, reps) in enumerate(fns):
+                with record_function(f"smoke_window_{i}"):
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+        n_dev, seen, us = window_us(
+            trace_events(prof, tag, DEVICE_CATS + ("user_annotation",
+                                                   "gpu_user_annotation")),
+            len(fns))
+        if seen != n_dev:
+            return n_dev, None
+        return n_dev, [u / 1e3 / r for u, (_, r) in zip(us, fns)]
+
+    def alone(fn, reps, name):
+        def trace():
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            evs = trace_events(prof, name)
+            return len(evs), [sum(float(e.get("dur", 0)) for e in evs)
+                              / 1e3 / reps]
+        return trace
+
+    for fn, _ in fns:
+        fn()
+    torch.cuda.synchronize()
+    ms = _median_of_full(windows)
+    if ms is None:
+        log(f"[timing] {tag}: device events outside the windows in every "
+            "trace; one session per call instead")
+        ms = []
+        for i, (fn, reps) in enumerate(fns):
+            one = _median_of_full(alone(fn, reps, f"{tag}_{i}"))
+            if one is None:
+                raise RuntimeError(f"{tag}: the profiler recorded no "
+                                   "device activity")
+            ms += one
+    return ms
 
 
 # ---------------------------------------------------------------------------
@@ -254,12 +345,12 @@ def ring_case(rng, dev):
             t(rval).view(torch.float32), t(keep))
 
 
-def tracker_case(rng, dev, B=B_FULL, CL=CL_FULL, RT=RT_FULL):
-    """Contested cluster tables (few distinct keys, many ties) and row
-    windows that fill most of RT."""
+def tracker_case(rng, dev, B=B_FULL, CL=CL_FULL, RT=RT_FULL, fill=0.7):
+    """Contested cluster tables (few distinct keys, many ties) at
+    occupancy ``fill`` and row windows that fill most of RT."""
     import torch
 
-    occ = rng.random((B, CL)) < 0.7
+    occ = rng.random((B, CL)) < fill
     valid = occ & (rng.random((B, CL)) < 0.9)
     r1 = rng.integers(0, 400, (B, CL))
     tab = {
@@ -547,6 +638,131 @@ def tracker_rows_case(rng, dev, B, CL, R, fill):
             t(row_ok), t(rows_r))
 
 
+I32_MIN, I32_MAX = -2**31, 2**31 - 1
+TIE_SCENARIOS = ("lane/warp ties", "match at 0", "match at CL-1",
+                 "int32 extremes", "wrapped r2", "every slot free",
+                 "all occupied, equal totals", "collisions",
+                 "evict int32 min")
+
+
+def tracker_tie_case(B, CL, seed=0):
+    """Adversarial tracker tables and rows for both folds (numpy; the CPU
+    tests hold the plain folds against JAX on it, phase 2 the kernels
+    against the plain folds).  Read b plays TIE_SCENARIOS[b % 9] with
+    variant b // 9: equal (total, r1, evt_en) keys at lane and warp
+    boundaries (the first index must win), a match at index 0 (r1
+    tie-break) and at CL-1 (evt_en tie-break), totals at INT32_MAX and
+    exactly NEG beside invalid clusters of INT32_MIN fields, a wrapped
+    r2 = ref_en - mc + 1, every slot free, every slot occupied with equal
+    totals (first-index eviction, ovf), colliding keys (zombies, the
+    matched cluster's own key), and an occupied INT32_MIN total evicted
+    before free slots.  Each read folds 3 rows: the crafted row, the same
+    row again (it now collides with the cluster it updated) and one that
+    grows it.  Eligible clusters' totals, r1 and evt_en stay >= NEG and
+    their evt_en gaps do not wrap: there the plain fold, the JAX kernel
+    and the CUDA kernels agree by construction.  Returns (state, compact
+    rows (ren, mc, evt [RT], st_w, rows_eff [B]), expanded rows (ren, mc,
+    evt, row_ok [B, 4], rows_r [B])); the expanded form gates row 1 off
+    in every third read."""
+    rng = np.random.default_rng(seed)
+    K = 3
+    st = {
+        "cl_valid": np.ones((B, CL), bool), "cl_count": np.ones((B, CL), bool),
+        "cl_ref_st": rng.integers(0, 5000, (B, CL)),
+        "cl_r1": np.zeros((B, CL), np.int64),
+        "cl_r2e": rng.integers(0, 9000, (B, CL)),
+        "cl_evt_st": rng.integers(0, 800, (B, CL)),
+        "cl_evt_en": np.zeros((B, CL), np.int64),
+        "cl_total": rng.integers(1, 300, (B, CL)),
+        "len_sum": (rng.random(B) * 100 + 1).astype(np.float32),
+        "n_cl": rng.integers(0, CL, B), "mm_len": rng.integers(0, 20, B),
+        "mm_ref_st": rng.integers(0, 5000, B),
+        "mm_r1": rng.integers(0, 5000, B), "mm_r2e": rng.integers(0, 5000, B),
+        "mm_evt_st": rng.integers(0, 800, B),
+        "mm_evt_en": rng.integers(0, 800, B),
+        "ovf": np.zeros(B, bool), "ovf_why": rng.integers(0, 4, B) * 2,
+    }
+    ren = np.zeros(B, np.int64)
+    mc = rng.integers(8, 30, B)
+    e2 = rng.integers(100, 700, B)
+    c = np.arange(CL)
+    for b in range(B):
+        scen, var = b % len(TIE_SCENARIOS), b // len(TIE_SCENARIOS)
+        ren[b] = rng.integers(1000, 4000)
+        r2 = ren[b] - mc[b] + 1
+        v, cnt = st["cl_valid"][b], st["cl_count"][b]
+        r1, e1, tot = st["cl_r1"][b], st["cl_evt_en"][b], st["cl_total"][b]
+        # default: occupied, valid, never eligible (r1 > r2)
+        r1[:] = r2 + 1 + rng.integers(0, 50, CL)
+        e1[:] = e2[b] - rng.integers(0, 30, CL)
+        if scen == 0:
+            ties = [i for i in (31, 32, 63, 64, 255, 256, 511, 512, 1023,
+                                1024, CL - 1) if i < CL]
+            ties = sorted(set(ties))[var % len(ties):] or [CL - 1]
+            r1[ties], e1[ties], tot[ties] = r2 - 5, e2[b] - 5, 77
+        elif scen == 1:
+            r1[:], e1[:], tot[:] = r2 - 4, e2[b] - 4, 50
+            r1[0], e1[0] = r2 - 3, e2[b] - 3  # largest r1, same total
+        elif scen == 2:
+            r1[:], e1[:], tot[:] = r2 - 1, e2[b] - 2, 50
+            e1[CL - 1] = e2[b] - 1  # largest evt_en, same total and r1
+        elif scen == 3:
+            r1[:], e1[:], tot[:] = I32_MIN, I32_MIN, I32_MIN
+            v[:] = False
+            k = (7 * var) % CL
+            r1[k], e1[k], tot[k] = r2 - 2, e2[b] - 2, I32_MAX
+            if CL > 1:
+                j = (k + 1) % CL
+                r1[j], e1[j], v[j] = r2 - 2, e2[b] - 2, True
+                tot[j] = -(1 << 30)  # exactly NEG
+        elif scen == 4:
+            ren[b] = I32_MIN + int(rng.integers(0, 5))
+            r2 = (ren[b] - mc[b] + 1 + 2**31) % 2**32 - 2**31  # wraps
+            r1[:] = I32_MIN  # r1 < r2, but out of range
+            k = (5 * var + 3) % CL
+            r1[k], e1[k] = r2 - 2, e2[b] - 2
+        elif scen == 5:
+            v[:], cnt[:] = False, False
+        elif scen == 6:
+            tot[:] = 9
+        elif scen == 7:
+            ks = [i for i in (0, 1, 33, CL // 2, CL - 1) if i < CL]
+            r1[ks], e1[ks] = r2, e2[b]
+            tot[ks] = 40 + np.arange(len(ks))  # the last one matches
+            if var % 2:  # only the matched cluster keeps the key
+                r1[ks[:-1]] = r2 + 3
+            if CL > 2:
+                v[ks[0]] = False  # a zombie with the key: not a collision
+        else:
+            free = c % 3 == 0
+            v[free], cnt[free] = False, False
+            k = 1 + (var % max(CL - 1, 1)) if CL > 1 else 0
+            v[k], cnt[k], tot[k] = False, True, I32_MIN
+        st["cl_r2e"][b] = np.where(rng.random(CL) < 0.5, r1 + 20, r1 - 3)
+        if scen == 3:  # no growth: the INT32_MAX total never wraps
+            st["cl_r2e"][b][k] = r2 + 1000
+    # rows: the crafted one, the same again, then one that grows it
+    rows = np.stack([ren, ren, ren + 7], 1)
+    mcs = np.stack([mc, mc, mc + 7], 1)
+    evts = np.stack([e2, e2, e2 + 9], 1)
+    st = {k: (a if a.dtype in (np.float32, bool) else
+              ((a + 2**31) % 2**32 - 2**31).astype(np.int32))
+          for k, a in st.items()}
+    i32 = lambda a: ((np.asarray(a, np.int64) + 2**31) % 2**32  # noqa
+                     - 2**31).astype(np.int32)
+    compact = (i32(rows.reshape(-1)), i32(mcs.reshape(-1)),
+               i32(evts.reshape(-1)), i32(np.arange(B) * K),
+               i32(np.full(B, K)))
+    R = K + 1
+    pad = lambda a: np.concatenate([a, a[:, :1]], 1)  # noqa: E731
+    row_ok = np.arange(R)[None, :] < K
+    row_ok = row_ok & ~((np.arange(B)[:, None] % 3 == 0)
+                        & (np.arange(R)[None, :] == 1))
+    expanded = (i32(pad(rows)), i32(pad(mcs)), i32(pad(evts)), row_ok,
+                i32(np.full(B, K)))
+    return st, compact, expanded
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -654,8 +870,32 @@ def phase_kernels(out, rate):
     ok &= report(res, "tracker_fold", got, want, rate,
                  lambda: tk.tracker_run_compact(*targs),
                  lambda: tk.tracker_run_compact_plain(*targs), None,
-                 nbytes=2 * tb + nrows * 12 + B_FULL * 8, plain_reps=3,
-                 shape=f"B={B_FULL} CL={CL_FULL} RT={RT_FULL} rows={nrows}")
+                 nbytes=2 * tb + nrows * 12 + B_FULL * 8, plain_reps=1,
+                 shape=f"B={B_FULL} CL={CL_FULL} RT={RT_FULL} rows={nrows}",
+                 rows_longest=int(rows.max()))
+    # the same fold at other threads per read (fold_launch halves them
+    # while B blocks would put more than _WARPS_PER_SM warps on each SM):
+    # the evidence for that choice
+    keep_w = tk._WARPS_PER_SM
+    widths = (4, 8, 16, 32)
+
+    def at(w):
+        tk._WARPS_PER_SM = w
+        tk.tracker_run_compact(*targs)
+
+    try:
+        ms = device_ms([(lambda w=w: at(w), 20) for w in widths],
+                       tag="tracker_fold_sweep")
+        sweep = {}
+        for w, m in zip(widths, ms):
+            tk._WARPS_PER_SM = w
+            sweep[tk.fold_launch(CL_FULL, B_FULL).threads] = m
+    finally:
+        tk._WARPS_PER_SM = keep_w
+    out["tracker_fold_threads_ms"] = sweep
+    log(f"[2] tracker_fold B={B_FULL} CL={CL_FULL} device ms by threads a "
+        f"read: {json.dumps(sweep)} (default "
+        f"{tk.fold_launch(CL_FULL, B_FULL).threads})")
     # the eject tier's table width (CL=16384, B=16)
     st2, ren2, mc2, evt2, stw2, rows2 = tracker_case(rng, dev, B=16,
                                                      CL=16384, RT=8192)
@@ -720,21 +960,101 @@ def phase_kernels(out, rate):
                 rng, dev, B, CL, R, fill)
             targs = (25, st, ren, mc, evt, row_ok, rows_r)
             label = f"B={B} CL={CL} R={R} {regime}"
-            if (B, regime) != (64, "normal"):
+            if regime != "normal":
                 ok &= check(f"tracker_fold_rows[{label}]",
                             tk.tracker_run(*targs),
                             tk.tracker_run_plain(*targs))
                 continue
+            # rung 0's is the headline; the final rung's is timed beside it
+            # (its plain fold, about 14000 launches a call, is not traced)
+            head = B == 64
             tb = sum(st[k].numel() * st[k].element_size() for k in st)
             nrows = int(rows_r.clamp(max=R).sum())
-            ok &= report(res, "tracker_fold_rows", tk.tracker_run(*targs),
+            ok &= report(res if head else out["kernel_shapes"],
+                         "tracker_fold_rows", tk.tracker_run(*targs),
                          tk.tracker_run_plain(*targs), rate,
                          lambda targs=targs: tk.tracker_run(*targs),
-                         lambda targs=targs: tk.tracker_run_plain(*targs),
+                         (lambda targs=targs: tk.tracker_run_plain(*targs))
+                         if head else None,
                          None, nbytes=2 * tb + nrows * 13 + B * 4,
-                         plain_reps=3, shape=f"{label} rows={nrows}")
+                         plain_reps=1, shape=f"{label} rows={nrows}",
+                         key=None if head else f"tracker_fold_rows[{label}]",
+                         rows_longest=int(rows_r.clamp(max=R).max()))
     ok &= phase_merge(out, rate, rng, dev)
+    ok &= phase_folds(out, dev)
     return ok
+
+
+FOLD_REGIMES = (("normal", None), ("full", 1.0), ("near-empty", 0.02))
+
+
+def phase_folds(out, dev):
+    """Both forms of both tracker folds (ops/tracker_kernel.py
+    fold_launch: the table in shared memory up to CL=8192, in device
+    memory above) against their plain versions, bit for bit: the compact
+    fold at CL 2048 (B=256), 8192 (B=8, the largest shared-memory table),
+    16384 (B=16) and 65536 (B=4), the expanded fold at CL 1024, 2048, 4096
+    (the ladder's widths; 1024 and 4096 above) and 16384 (B=4, the
+    device-memory form, which no classic rung takes), each in the normal,
+    full and near-empty regimes and on the adversarial tie case
+    (tracker_tie_case).  Its own seed: the earlier cases keep their
+    inputs."""
+    import torch
+
+    from uncalled_tpu_torch.ops import _cuda
+    from uncalled_tpu_torch.ops import tracker_kernel as tk
+
+    rng = np.random.default_rng(20261017)
+    before = dict(_cuda.COUNTS)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    ok = True
+    for B, CL, RT in ((B_FULL, CL_FULL, RT_FULL), (8, 8192, 1024),
+                      (16, 16384, 8192), (4, 65536, 1024)):
+        form = tk.fold_launch(CL, B).form
+        for regime, fill in FOLD_REGIMES:
+            if (CL, regime) == (CL_FULL, "normal"):
+                continue  # the headline, above
+            a = (25, *tracker_case(rng, dev, B, CL, RT,
+                                   0.7 if fill is None else fill))
+            ok &= check(f"tracker_fold[{form} B={B} CL={CL} {regime}]",
+                        tk.tracker_run_compact(*a),
+                        tk.tracker_run_compact_plain(*a))
+        nb = 9 if CL > 16384 else 18
+        st, comp, _ = tracker_tie_case(nb, CL, seed=CL)
+        a = (25, {k: t(v) for k, v in st.items()}, *[t(x) for x in comp])
+        ok &= check(f"tracker_fold[{form} B={nb} CL={CL} ties]",
+                    tk.tracker_run_compact(*a),
+                    tk.tracker_run_compact_plain(*a))
+    for B, CL, R in ((128, 2048, 512), (4, 16384, 256)):
+        form = tk.fold_launch(CL, B).form
+        for regime, fill in FOLD_REGIMES:
+            a = (25, *tracker_rows_case(rng, dev, B, CL, R,
+                                        0.3 if fill is None else fill))
+            ok &= check(f"tracker_fold_rows[{form} B={B} CL={CL} R={R} "
+                        f"{regime}]", tk.tracker_run(*a),
+                        tk.tracker_run_plain(*a))
+    for CL in (1024, 2048, 4096, 16384):
+        form = tk.fold_launch(CL, 18).form
+        st, _, exp = tracker_tie_case(18, CL, seed=CL + 1)
+        a = (25, {k: t(v) for k, v in st.items()}, *[t(x) for x in exp])
+        ok &= check(f"tracker_fold_rows[{form} B=18 CL={CL} ties]",
+                    tk.tracker_run(*a), tk.tracker_run_plain(*a))
+    forms = fold_forms({k: _cuda.COUNTS[k] - before[k] for k in before})
+    log(f"[2] tracker fold forms launched by phase 2 (checks and timing "
+        f"runs): {json.dumps(forms)}")
+    out["fold_forms_phase2"] = forms
+    return ok and all(forms.values())
+
+
+def fold_forms(counts):
+    """Launches of each form of the two folds in ``counts``."""
+    return {k: counts[k] for k in ("tracker_fold_shared",
+                                   "tracker_fold_device",
+                                   "tracker_fold_rows_shared",
+                                   "tracker_fold_rows_device")}
 
 
 def phase_merge(out, rate, rng, dev):
@@ -770,15 +1090,26 @@ def phase_merge(out, rate, rng, dev):
     bit = pm._sort1d_bitonic(ks)
     flat = pm._sort1d(ks)
     eq = check("sort1d_bitonic vs flat sort", bit, flat)
+    bitonic_ms, flat_ms = device_ms(
+        [(lambda: pm._sort1d_bitonic(ks), 20), (lambda: pm._sort1d(ks), 20)],
+        tag="sort")
     out["sort_compare"] = dict(
-        n=SC_FULL, equal=eq,
-        bitonic_ms=device_ms(lambda: pm._sort1d_bitonic(ks), tag="bitonic"),
-        flat_ms=device_ms(lambda: pm._sort1d(ks), tag="flat_sort"),
+        n=SC_FULL, equal=eq, bitonic_ms=bitonic_ms, flat_ms=flat_ms,
         bitonic_call_ms=time_ms(lambda: pm._sort1d_bitonic(ks)),
         flat_call_ms=time_ms(lambda: pm._sort1d(ks)),
     )
     log("[2] whole sort at SC=122880: " + json.dumps(out["sort_compare"]))
     return ok and eq
+
+
+def live_fold_time(name, fn, rows_longest, rows_total, shape):
+    """Device time of a fold captured from a live step, beside the row
+    count of its longest read."""
+    ms, = device_ms([(fn, 20)], tag=name + "_live")
+    res = dict(shape=shape, rows_longest=rows_longest, rows=rows_total,
+               ms=ms, us_per_row=ms * 1e3 / max(rows_longest, 1))
+    log(f"[live] {name} on captured step inputs: " + json.dumps(res))
+    return res
 
 
 def check(name, got, want) -> bool:
@@ -791,11 +1122,13 @@ def check(name, got, want) -> bool:
 
 
 def report(res, name, got, want, rate, kfn, pfn, lfn, nbytes, shape,
-           plain_reps=10, key=None) -> bool:
+           plain_reps=10, key=None, rows_longest=None) -> bool:
     eq = check(key or name, got, want)
-    ms = device_ms(kfn, tag=name)
-    plain_ms = device_ms(pfn, reps=plain_reps, tag=name + "_plain")
-    lib_ms = device_ms(lfn, tag=name + "_lib") if lfn is not None else None
+    fns = [(kfn, 20)] + [(f, r) for f, r in ((pfn, plain_reps), (lfn, 20))
+                         if f is not None]
+    ms, *rest = device_ms(fns, tag=name)
+    plain_ms = rest.pop(0) if pfn is not None else None
+    lib_ms = rest.pop(0) if lfn is not None else None
     call_ms = time_ms(kfn)
     bound_ms = nbytes / rate * 1e3
     res[key or name] = dict(
@@ -803,8 +1136,13 @@ def report(res, name, got, want, rate, kfn, pfn, lfn, nbytes, shape,
         ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
         library_ms=lib_ms, call_ms=call_ms, shape=shape, bytes=nbytes,
     )
+    if rows_longest is not None:  # a row chain: its length and per-row time
+        res[key or name].update(rows_longest=rows_longest,
+                                us_per_row=ms * 1e3 / max(rows_longest, 1))
+        log(f"[2] {key or name}: longest read {rows_longest} rows, "
+            f"{ms * 1e3 / max(rows_longest, 1):.4f} us a row")
     log(f"[2] {name} {shape}: device ms per call: kernel {ms:.4f}, plain "
-        f"{plain_ms:.4f}, library "
+        f"{plain_ms if plain_ms is None else round(plain_ms, 4)}, library "
         f"{lib_ms if lib_ms is None else round(lib_ms, 4)}, bound "
         f"{bound_ms:.4f} ({nbytes} B); kernel call incl. host "
         f"{call_ms:.4f} ms (CUDA events)")
@@ -1206,6 +1544,13 @@ def phase_real(out, rate):
     # the step's nine column gathers, the unified record table among them
     ok &= any(len(c[0]) == 5 for c, _, _ in captured["flat_gather"]
               if isinstance(c[0], list))
+    # the compact fold on the live step's rows (the real regime: few rows
+    # a read), the captured call with the longest read
+    if captured["tracker_fold"]:
+        a = max(captured["tracker_fold"], key=lambda a: int(a[6].max()))
+        out["real_fold"] = live_fold_time(
+            "tracker_fold", lambda: tk.tracker_run_compact(*a),
+            int(a[6].max()), int(a[6].sum()), tuple(a[1]["cl_valid"].shape))
 
     # the timed run
     truth = {r.id: (r.ref_name, r.ref_start, r.ref_end, r.fwd) for r in sim}
@@ -1247,6 +1592,7 @@ def phase_real(out, rate):
     out["real"] = real
     out["real_lines"] = {pf.rd_name: pf.to_line() for pf in pafs}
     log("[4] real: " + json.dumps(real))
+    log("[4] tracker fold forms: " + json.dumps(fold_forms(counts)))
     out["profile"] = profile_block(bm2, timed)
     log("[4] profile: " + json.dumps(out["profile"]))
     ok &= lines_ok and len(pafs) == len(timed) and n_mapped > 0
@@ -1334,6 +1680,15 @@ def phase_classic(out):
         ok &= bool(calls)
     # the step's threshold-and-prob table as two segment tables
     ok &= any(isinstance(a[0], list) for a in captured["row_gather"])
+    # the expanded fold on the live step's rows, the longest read
+    if captured["tracker_fold_rows"]:
+        def longest(a):
+            return int(a[6].clamp(max=a[2].shape[1]).max())
+
+        a = max(captured["tracker_fold_rows"], key=longest)
+        out["classic_fold"] = live_fold_time(
+            "tracker_fold_rows", lambda: tk.tracker_run(*a), longest(a),
+            int(a[5].sum()), tuple(a[1]["cl_valid"].shape))
 
     # the timed run
     truth = {r.id: (r.ref_name, r.ref_start, r.ref_end, r.fwd) for r in sim}
@@ -1370,6 +1725,7 @@ def phase_classic(out):
     )
     out["classic"] = real
     log("[5] classic: " + json.dumps(real))
+    log("[5] tracker fold forms: " + json.dumps(fold_forms(counts)))
     # one profiled block on every rung that ran (its first B timed reads)
     out["classic_profile"] = {}
     for m in bm2.tiers():
@@ -1482,6 +1838,7 @@ def phase_defaults(out):
     )
     out["defaults"] = real
     log("[6] defaults: " + json.dumps(real))
+    log("[6] tracker fold forms: " + json.dumps(fold_forms(counts)))
     for r in differ[:5]:
         log(f"[6]   {r}: {lines4.get(r)!r} (phase 4) vs this run's line")
     for i, (ks, k_lv, C) in enumerate(captured):
@@ -1562,6 +1919,7 @@ def profile_block(bm, reads):
         top_kernels_ms_per_step=[(k, v / 1e3 / T) for k, v in top],
         gather_cols_ms_per_step=family_ms("gather_cols_kernel"),
         cat_ms_per_step=family_ms("CatArrayBatchedCopy"),
+        tracker_fold_ms_per_step=family_ms("tracker_fold_kernel"),
     )
 
 
@@ -1588,20 +1946,22 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    out = {"kernels": {}}
+    out = {"kernels": {}, "phase_seconds": {}}
     ok = True
+    t0 = time.time()
     phase_card(out)
     rate = hbm_rate(out["card"])
-    if 2 in phases:
-        ok &= phase_kernels(out, rate)
-    if 3 in phases:
-        ok &= phase_golden(out)
-    if 4 in phases:
-        ok &= phase_real(out, rate)
-    if 5 in phases:
-        ok &= phase_classic(out)
-    if 6 in phases:
-        ok &= phase_defaults(out)
+    out["phase_seconds"][1] = time.time() - t0
+    for n, run in ((2, lambda: phase_kernels(out, rate)),
+                   (3, lambda: phase_golden(out)),
+                   (4, lambda: phase_real(out, rate)),
+                   (5, lambda: phase_classic(out)),
+                   (6, lambda: phase_defaults(out))):
+        if n in phases:
+            t0 = time.time()
+            ok &= run()
+            out["phase_seconds"][n] = time.time() - t0
+            log(f"[{n}] phase {n} took {out['phase_seconds'][n]:.1f} s")
     from uncalled_tpu_torch.ops._cuda import BUILD_DIR
 
     os.makedirs(BUILD_DIR, exist_ok=True)

@@ -137,11 +137,14 @@ def _rand_state(rng, B, CL, fill):
 
 @pytest.mark.parametrize(
     "seed,fill,CL", [(3, 0.3, 128), (4, 0.97, 128), (5, 1.0, 16),
-                     (6, 0.0, 8)],
+                     (6, 0.0, 8), (7, "ties", 128)],
 )
 def test_tracker_fold_plain_matches_jax(seed, fill, CL):
     """Contested rows (near existing clusters: matches, ties, zombies) and
-    small tables that force evictions."""
+    small tables that force evictions; "ties": chip_smoke.tracker_tie_case
+    (equal keys across lane and warp boundaries, matches at index 0 and
+    CL-1, int32 extremes, a wrapped r2, every slot free or occupied,
+    collisions), which phase 2 also runs through the CUDA kernels."""
     import jax.numpy as jnp
 
     from uncalled_tpu.ops.tracker_kernel import tracker_run_compact
@@ -150,26 +153,32 @@ def test_tracker_fold_plain_matches_jax(seed, fill, CL):
         tracker_run_compact as tfold,
     )
 
-    B, RT = 16, 256
-    rng = np.random.default_rng(seed)
-    st = _rand_state(rng, B, CL, fill)
-    counts = rng.integers(0, 24, B).astype(np.int32)
-    st_w = np.minimum(np.concatenate([[0], np.cumsum(counts)[:-1]]),
-                      RT - 1).astype(np.int32)
-    rows_eff = np.minimum(counts, RT - st_w).astype(np.int32)
-    owner = np.repeat(np.arange(B), rows_eff)[:RT]
-    rr_mc = rng.integers(1, 30, RT).astype(np.int32)
-    rr_ref_en = rng.integers(0, 5000, RT).astype(np.int32)
-    rr_evt = rng.integers(0, 800, RT).astype(np.int32)
-    n_own = len(owner)
-    pick = rng.integers(0, CL, n_own)
-    near = rng.random(n_own) < 0.6
-    rr_ref_en[:n_own] = np.where(
-        near, st["cl_r1"][owner, pick] + rr_mc[:n_own] - 1
-        + rng.integers(-2, 30, n_own), rr_ref_en[:n_own])
-    rr_evt[:n_own] = np.where(
-        near, st["cl_evt_en"][owner, pick] + rng.integers(-1, 25, n_own),
-        rr_evt[:n_own])
+    if fill == "ties":
+        from chip_smoke import tracker_tie_case
+
+        st, rows, _ = tracker_tie_case(24, CL, seed)
+        rr_ref_en, rr_mc, rr_evt, st_w, rows_eff = rows
+    else:
+        B, RT = 16, 256
+        rng = np.random.default_rng(seed)
+        st = _rand_state(rng, B, CL, fill)
+        counts = rng.integers(0, 24, B).astype(np.int32)
+        st_w = np.minimum(np.concatenate([[0], np.cumsum(counts)[:-1]]),
+                          RT - 1).astype(np.int32)
+        rows_eff = np.minimum(counts, RT - st_w).astype(np.int32)
+        owner = np.repeat(np.arange(B), rows_eff)[:RT]
+        rr_mc = rng.integers(1, 30, RT).astype(np.int32)
+        rr_ref_en = rng.integers(0, 5000, RT).astype(np.int32)
+        rr_evt = rng.integers(0, 800, RT).astype(np.int32)
+        n_own = len(owner)
+        pick = rng.integers(0, CL, n_own)
+        near = rng.random(n_own) < 0.6
+        rr_ref_en[:n_own] = np.where(
+            near, st["cl_r1"][owner, pick] + rr_mc[:n_own] - 1
+            + rng.integers(-2, 30, n_own), rr_ref_en[:n_own])
+        rr_evt[:n_own] = np.where(
+            near, st["cl_evt_en"][owner, pick] + rng.integers(-1, 25, n_own),
+            rr_evt[:n_own])
     want = tracker_run_compact(
         7, {k: jnp.asarray(v) for k, v in st.items()},
         jnp.asarray(rr_ref_en), jnp.asarray(rr_mc), jnp.asarray(rr_evt),
@@ -180,5 +189,5 @@ def test_tracker_fold_plain_matches_jax(seed, fill, CL):
     assert set(got) == set(st)
     for k in st:
         _eq(want[k], got[k])
-    if fill >= 0.97:
+    if fill == "ties" or fill >= 0.97:
         assert np.asarray(want["ovf_why"] & 1).any()  # evictions happened

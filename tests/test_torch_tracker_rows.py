@@ -1,7 +1,8 @@
 """The port's expanded seed-tracker fold ``tracker_run`` (plain version on
 the CPU) against the JAX ``tracker_run`` kernel in Pallas interpret mode,
 in the three occupancy regimes of tests/test_tracker_kernel.py (normal,
-full table with evictions, near-empty with bursty rows).  Zero tolerance.
+full table with evictions, near-empty with bursty rows) and on the
+adversarial tie case of chip_smoke.py.  Zero tolerance.
 The CUDA kernel is held against this plain version on the card by
 chip_smoke.py."""
 
@@ -25,6 +26,7 @@ def _t(a):
         (0, 0.3, 16, 128, 24),   # normal occupancy
         (1, 1.0, 16, 128, 24),   # full table: eviction path
         (2, 0.02, 8, 256, 48),   # near-empty, bursty rows
+        (3, "ties", 24, 128, 4),  # chip_smoke.tracker_tie_case
     ],
 )
 def test_tracker_run_matches_jax(seed, fill, B, CL, R):
@@ -34,21 +36,30 @@ def test_tracker_run_matches_jax(seed, fill, B, CL, R):
 
     from uncalled_tpu_torch.ops.tracker_kernel import tracker_run
 
-    rng = np.random.default_rng(seed)
-    st = _rand_state(rng, B, CL, fill)
-    # rows near existing cluster coordinates: matches, collisions and
-    # insertions all occur (the JAX test's streams)
-    base = rng.integers(0, 5000, (B, R)).astype(np.int32)
-    near = st["cl_r1"][:, :R] + rng.integers(-3, 40, (B, R))
-    use_near = rng.random((B, R)) < 0.6
-    mc = rng.integers(1, 30, (B, R)).astype(np.int32)
-    ref_en = np.where(use_near, near + mc - 1, base).astype(np.int32)
-    evt = (st["cl_evt_en"][:, :R] + rng.integers(-2, 30, (B, R))).astype(
-        np.int32)
-    rows_r = rng.integers(0, R + 1, B).astype(np.int32)
-    # gated rows inside each read's count; none past it (the precondition)
-    row_ok = (np.arange(R)[None, :] < rows_r[:, None]) & (
-        rng.random((B, R)) < 0.95)
+    if fill == "ties":
+        # equal keys across lane and warp boundaries, matches at index 0
+        # and CL-1, int32 extremes, a wrapped r2, every slot free or
+        # occupied, collisions; row 1 gated off in every third read
+        from chip_smoke import tracker_tie_case
+
+        st, _, rows = tracker_tie_case(B, CL, seed)
+        ref_en, mc, evt, row_ok, rows_r = rows
+    else:
+        rng = np.random.default_rng(seed)
+        st = _rand_state(rng, B, CL, fill)
+        # rows near existing cluster coordinates: matches, collisions and
+        # insertions all occur (the JAX test's streams)
+        base = rng.integers(0, 5000, (B, R)).astype(np.int32)
+        near = st["cl_r1"][:, :R] + rng.integers(-3, 40, (B, R))
+        use_near = rng.random((B, R)) < 0.6
+        mc = rng.integers(1, 30, (B, R)).astype(np.int32)
+        ref_en = np.where(use_near, near + mc - 1, base).astype(np.int32)
+        evt = (st["cl_evt_en"][:, :R] + rng.integers(-2, 30, (B, R))).astype(
+            np.int32)
+        rows_r = rng.integers(0, R + 1, B).astype(np.int32)
+        # gated rows inside each read's count; none past it (the precondition)
+        row_ok = (np.arange(R)[None, :] < rows_r[:, None]) & (
+            rng.random((B, R)) < 0.95)
 
     want = jrun(
         7, {k: jnp.asarray(v) for k, v in st.items()}, jnp.asarray(ref_en),
@@ -64,5 +75,5 @@ def test_tracker_run_matches_jax(seed, fill, B, CL, R):
         if a.dtype == np.float32:
             a, b = a.view(np.int32), b.view(np.int32)
         assert np.array_equal(a, b), k
-    if fill == 1.0:
+    if fill in (1.0, "ties"):
         assert (np.asarray(want["ovf_why"]) & 1).any()  # evictions happened

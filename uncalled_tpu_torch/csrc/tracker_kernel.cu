@@ -1,40 +1,75 @@
 // Seed-tracker folds of the pooled and the classic step (Hopper, sm_90a).
 //
-// Two entries share one per-row update (fold_row):
+// Two entries share one kernel template and one per-row update (fold_row):
 //   tracker_fold_compact <- uncalled_tpu/ops/tracker_kernel.py:_kernel_c
 //     (built by _build_c, called through tracker_run_compact from the
-//     pooled step): read b's rows are rr_*[st_w[b] + r], r < rows_eff[b];
+//     pooled step): read b's rows are rr_*[clamp(st_w[b] + r, 0, RT-1)],
+//     r < rows_eff[b];
 //   tracker_fold_rows    <- uncalled_tpu/ops/tracker_kernel.py:_kernel
 //     (built by _build, called through tracker_run; the classic step's
-//     row fold, engine.py:945-969): read b's rows are the [B, R] streams
-//     at b*R + r, r < min(rows_r[b], R), each gated by row_ok (a gated-off
-//     row only replays len_sum's ((x + 0) + 0) - 0).
+//     row fold): read b's rows are the [B, R] streams at b*R + r,
+//     r < min(rows_r[b], R), each gated by row_ok (a gated-off row only
+//     replays len_sum's ((x + 0) + 0) - 0).
 // Each row folds into the read's [CL] cluster table:
 // SeedTracker::add_seed (seed_tracker.cpp:157-232) with
 // SeedCluster::update (:56-73).  Per row: the eligible cluster with the
 // largest total wins (ties: largest r1, then largest evt_en, then first
 // index); the reinsertion collision makes it a zombie; with no match the
-// seed is inserted into a free slot or evicts the smallest cluster (ovf
-// bit 1); len_sum is f32 in the reference's order
-// ((len_sum + upd) + ins) - evicted; the best-cluster mm_* snapshot follows.
+// seed is inserted into a free slot or evicts the smallest cluster (first
+// index; ovf bit 1 when no slot is free); len_sum is f32 in the
+// reference's order ((len_sum + upd) + ins) - evicted; the best-cluster
+// mm_* snapshot follows.
 //
-// Bound on the card: device memory and latency.  Each event the tables
-// (8 fields x [B, CL]; 13.6 MB at B=256, CL=2048) are read once and
-// written once; the fold itself is a serial chain of rows per read, each
-// row a full scan of that read's table.  Design: one block per read (the
-// TPU's sequential 8-read grid becomes B independent blocks, so any B
-// works), the table stays in device memory (L2-resident at these sizes;
-// the eject tiers' CL=16384/65536 tables work the same way), threads
-// stride over CL and each row is ONE scan: a block reduction of the
-// lexicographic match key, the evict key (min total, first index), a
-// free-slot flag and a count of key collisions, after which thread 0
-// applies the single-cluster update and the scalar updates.  Each read
-// stops at its own row count: no batch maximum, no host sync.  Integer
-// arithmetic wraps like JAX's int32 (done in unsigned); f32 is IEEE
-// (never built with fast math).
+// What bounds it on this card: not bytes (the tables are read and written
+// once, a few microseconds at 3.35 TB/s) but the latency of each read's
+// row chain.  A read folds its rows strictly in order, so the kernel takes
+// (rows of the longest read) x (latency of one row).  The design keeps
+// that latency free of device memory and of serial work:
+//
+// - One block per read.  Thread t owns clusters t, t + threads, ...: only
+//   the owner ever reads or writes a cluster inside the row loop, so the
+//   table needs no barrier.  threads (ops/tracker_kernel.py fold_launch):
+//   the smallest power of two >= CL/4 in [32, 1024], halved while the
+//   batch would put more than 16 warps on each of the 132 SMs.  A row is
+//   a latency chain when few warps share an SM (four clusters a thread
+//   keep the scan short) but issue-bound when many do, since every warp
+//   pays the reductions and the update: a wide batch gives each thread
+//   more clusters instead.
+// - Each row: every thread scans its own clusters for the best eligible
+//   one (strict improvement keeps the first index) and the smallest
+//   evict key; the warp reduces the match key (flip(total), flip(r1),
+//   flip(evt_en), ~index) by a cascade of redux.sync max and the evict
+//   key (flip(total or NEG), index << 2 | count << 1 | valid) by redux.sync
+//   min, one instruction a word; one lane writes the warp's partial to
+//   shared memory (double-buffered by row parity); ONE block barrier;
+//   then every warp reduces the warps' partials the same way.  Every
+//   thread now holds the winner and the matched cluster's (r2e, ref_st,
+//   evt_st), which its owner put in its warp's partial: the owner alone
+//   writes the cluster, and every thread updates its own register copy
+//   of the tracker scalars (len_sum, n_cl, mm_*, ovf, ovf_why)
+//   identically.  No thread works alone while the others wait.
+// - The rows are staged in shared memory ahead of the chain, one chunk of
+//   `threads` rows at a time (one row a thread, two barriers a chunk).
+// - Shared-memory form (CL <= 8192, ops/tracker_kernel.py
+//   SHARED_MAX_CL): the table (25 bytes a cluster, the valid and count
+//   flags in one byte: 200 KB at CL=8192, 221,184 bytes with the staging
+//   and the partials at 1024 threads, under the 232,448 a block may take)
+//   is loaded once with 16-byte loads where the layout is aligned and
+//   stored once at the end; the per-row loop touches no device memory.
+//   8192 is the largest power of two that fits.
+// - Device-memory form (CL > 8192: the pooled eject tiers' 16384 and
+//   65536): the table lives in the output arrays, each thread copies its
+//   own clusters there and its scan reads them from L1/L2; the row staging
+//   and the reductions are the same.
+// - A read with no rows is copied through, table and scalars.
+// Each read stops at its own row count: no batch maximum, no host sync.
+// Integer arithmetic wraps like JAX's int32 (done in unsigned); f32 is
+// IEEE (never built with fast math; explicit round-to-nearest adds).
+// The match pick is the lexicographic maximum over eligible clusters,
+// which equals the plain fold's NEG-masked cascade wherever the winner's
+// total, r1 and evt_en are >= NEG (-2^30), as every fold state is.
 
 #include <cuda_runtime.h>
-#include <limits.h>
 #include <stdint.h>
 
 #define NEG (-(1 << 30))
@@ -92,61 +127,20 @@ struct TrackerArgs {
   int B, CL, RT, R, min_aln_len;
 };
 
-__device__ __forceinline__ int wsub(int a, int b) {
-  return (int)((unsigned)a - (unsigned)b);
-}
-__device__ __forceinline__ int wadd(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
-
-struct Scan {
-  int mtot, mr1, me1, midx;  // best eligible cluster; midx == INT_MAX: none
-  int ekey, eidx;            // smallest evict key, first index
-  int anyfree;               // some slot is unoccupied
-  int ncoll;                 // # valid clusters whose key equals (r2, e2)
+// One warp's scan result, written by one lane, read by every warp after
+// the row's barrier: the match key (flip(total), flip(r1), flip(evt_en),
+// ~index; all 0: no match), the evict key (flip(total or NEG),
+// index << 2 | count << 1 | valid), the collision count, the free-slot
+// flag, and the warp's matched cluster's r2e, ref_st, evt_st.
+struct Partial {
+  unsigned mt, mr, me, mi, eh, el;
+  int ncoll, anyfree, r2e, rst, est, pad;
 };
+static_assert(sizeof(Partial) == 48, "Partial (ops/tracker_kernel.py)");
 
-__device__ __forceinline__ bool match_better(int t, int r, int e, int i,
-                                             const Scan& s) {
-  if (i == INT_MAX) return false;
-  if (s.midx == INT_MAX) return true;
-  if (t != s.mtot) return t > s.mtot;
-  if (r != s.mr1) return r > s.mr1;
-  if (e != s.me1) return e > s.me1;
-  return i < s.midx;
-}
-
-__device__ __forceinline__ void combine(Scan& s, const Scan& o) {
-  if (match_better(o.mtot, o.mr1, o.me1, o.midx, s)) {
-    s.mtot = o.mtot;
-    s.mr1 = o.mr1;
-    s.me1 = o.me1;
-    s.midx = o.midx;
-  }
-  if (o.ekey < s.ekey || (o.ekey == s.ekey && o.eidx < s.eidx)) {
-    s.ekey = o.ekey;
-    s.eidx = o.eidx;
-  }
-  s.anyfree |= o.anyfree;
-  s.ncoll += o.ncoll;
-}
-
-__device__ __forceinline__ Scan shfl_down(const Scan& s, int o) {
-  Scan n;
-  n.mtot = __shfl_down_sync(FULL_MASK, s.mtot, o);
-  n.mr1 = __shfl_down_sync(FULL_MASK, s.mr1, o);
-  n.me1 = __shfl_down_sync(FULL_MASK, s.me1, o);
-  n.midx = __shfl_down_sync(FULL_MASK, s.midx, o);
-  n.ekey = __shfl_down_sync(FULL_MASK, s.ekey, o);
-  n.eidx = __shfl_down_sync(FULL_MASK, s.eidx, o);
-  n.anyfree = __shfl_down_sync(FULL_MASK, s.anyfree, o);
-  n.ncoll = __shfl_down_sync(FULL_MASK, s.ncoll, o);
-  return n;
-}
-
-// One read's cluster table and tracker scalars inside its block.  The
-// table lives in the output arrays; the scalars are thread 0's registers.
-struct ReadFold {
+// In the shared-memory form v holds both flags (bit 0 valid, bit 1
+// count) and cnt is unused; in device memory they are the two outputs.
+struct Table {
   uint8_t* v;
   uint8_t* cnt;
   int32_t* rst;
@@ -155,163 +149,342 @@ struct ReadFold {
   int32_t* est;
   int32_t* e1;
   int32_t* tot;
+};
+
+// the tracker scalars: one identical register copy in every thread
+struct Scalars {
   float ls;
   int ncl, mml, mmrst, mmr1, mmr2e, mmest, mme1, ovf, ovfw;
 };
 
-// Fold one seed row (ref_en, mcv, e2) into the read's table: one block-wide
-// scan, then thread 0 applies the single-cluster update and the scalar
-// updates.  Every thread of the block calls it (two barriers inside).
-__device__ void fold_row(ReadFold& f, int CL, int min_aln_len, int ref_en,
-                         int mcv, int e2, Scan* warp_scan) {
+__device__ __forceinline__ int wsub(int a, int b) {
+  return (int)((unsigned)a - (unsigned)b);
+}
+__device__ __forceinline__ int wadd(int a, int b) {
+  return (int)((unsigned)a + (unsigned)b);
+}
+// signed order as unsigned order
+__device__ __forceinline__ unsigned flip(int x) {
+  return (unsigned)x ^ 0x80000000u;
+}
+__device__ __forceinline__ int unflip(unsigned x) {
+  return (int)(x ^ 0x80000000u);
+}
+
+// The warp's lexicographic max of the match key and min of the evict key
+// (redux.sync: one instruction a word, every lane gets the result), its
+// collision count and free-slot flag.  Lanes without a candidate hold
+// (0, 0, 0, 0) and (~0, ~0); a real match key has mi = ~index > 0 and a
+// real evict key el = index << 2 | bits < ~0, so neither sentinel wins.
+__device__ __forceinline__ void warp_reduce(Partial& p) {
+  const unsigned mt = __reduce_max_sync(FULL_MASK, p.mt);
+  const unsigned mr = __reduce_max_sync(FULL_MASK, p.mt == mt ? p.mr : 0u);
+  const bool tie2 = p.mt == mt && p.mr == mr;
+  const unsigned me = __reduce_max_sync(FULL_MASK, tie2 ? p.me : 0u);
+  p.mi = __reduce_max_sync(FULL_MASK, tie2 && p.me == me ? p.mi : 0u);
+  p.mt = mt;
+  p.mr = mr;
+  p.me = me;
+  const unsigned eh = __reduce_min_sync(FULL_MASK, p.eh);
+  p.el = __reduce_min_sync(FULL_MASK, p.eh == eh ? p.el : ~0u);
+  p.eh = eh;
+  p.ncoll = (int)__reduce_add_sync(FULL_MASK, (unsigned)p.ncoll);
+  p.anyfree = __any_sync(FULL_MASK, p.anyfree);
+}
+
+// cluster c's flags: bit 0 valid, bit 1 count
+template <bool SHARED>
+__device__ __forceinline__ unsigned flags_of(const Table& t, int c) {
+  if (SHARED) return t.v[c];
+  return (unsigned)t.v[c] | ((unsigned)t.cnt[c] << 1);
+}
+
+// Fold one seed row (ref_en, mcv, e2) into the read's table.  Every
+// thread of the block calls it; one barrier inside.  part: this row's
+// parity half of the [2][warps] partials.
+template <bool SHARED>
+__device__ __forceinline__ void fold_row(const Table& t, Scalars& sc, int CL,
+                                         int min_aln_len, int ref_en,
+                                         int mcv, int e2, Partial* part) {
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
+  const int lane = tid & 31;
   const int r2 = wadd(wsub(ref_en, mcv), 1);  // new.ref_en_start
   const int r2e = ref_en;                     // new.ref_en_end
 
-  Scan s;
-  s.mtot = NEG;
-  s.mr1 = NEG;
-  s.me1 = NEG;
-  s.midx = INT_MAX;
-  s.ekey = INT_MAX;
-  s.eidx = INT_MAX;
-  s.anyfree = 0;
-  s.ncoll = 0;
+  // the thread's own clusters, ascending: a strict improvement keeps the
+  // first index of equal keys
+  bool has = false;
+  int bt = 0, br = 0, be = 0, bi = 0;
+  unsigned eh = ~0u, el = ~0u;
+  int ncoll = 0, anyfree = 0;
+#pragma unroll 4
   for (int c = tid; c < CL; c += nt) {
-    const bool vb = f.v[c] != 0;
-    const bool cb = f.cnt[c] != 0;
-    const int r1c = f.r1[c], e1c = f.e1[c], totc = f.tot[c];
-    const bool considered = vb && (r1c < r2 || (r1c == r2 && e1c <= e2));
+    const unsigned f = flags_of<SHARED>(t, c);
+    const int r1c = t.r1[c], e1c = t.e1[c], totc = t.tot[c];
     const int dr = wsub(r2, r1c);
     const int de = wsub(e2, e1c);
-    // trunc vs floor of de/12 differs only at de < 0, where e1c <= e2
-    // (the first conjunct) is already false
-    const bool in_range = (e1c <= e2) && (dr <= de) && (dr >= de / 12);
-    if (considered && in_range && match_better(totc, r1c, e1c, c, s)) {
-      s.mtot = totc;
-      s.mr1 = r1c;
-      s.me1 = e1c;
-      s.midx = c;
+    // eligible: valid, considered (r1 < r2, or r1 == r2 and e1 <= e2) and
+    // in range (e1 <= e2, dr <= de, dr >= de/12); with e1 <= e2 a
+    // conjunct, considered is r1 <= r2.  trunc vs floor of de/12 differs
+    // only at de < 0, where e1 <= e2 is already false
+    if ((f & 1) && r1c <= r2 && e1c <= e2 && dr <= de && dr >= de / 12) {
+      // a collision (valid, key == (r2, e2)) is always eligible
+      ncoll += (dr == 0 && de == 0) ? 1 : 0;
+      if (!has || totc > bt ||
+          (totc == bt && (r1c > br || (r1c == br && e1c > be)))) {
+        has = true;
+        bt = totc;
+        br = r1c;
+        be = e1c;
+        bi = c;
+      }
     }
-    const int ek = cb ? totc : NEG;
-    // strided c ascends: ties keep the first index
-    if (s.eidx == INT_MAX || ek < s.ekey) {
-      s.ekey = ek;
-      s.eidx = c;
+    const unsigned ef = flip((f & 2) ? totc : NEG);
+    if (ef < eh || el == ~0u) {
+      eh = ef;
+      el = ((unsigned)c << 2) | (f & 3);
     }
-    s.anyfree |= !cb;
-    s.ncoll += (vb && r1c == r2 && e1c == e2) ? 1 : 0;
+    anyfree |= (f & 2) ? 0 : 1;
   }
-  for (int o = 16; o > 0; o >>= 1) combine(s, shfl_down(s, o));
-  if ((tid & 31) == 0) warp_scan[tid >> 5] = s;
+  Partial p;
+  p.r2e = p.rst = p.est = p.pad = 0;
+  p.mt = has ? flip(bt) : 0u;
+  p.mr = has ? flip(br) : 0u;
+  p.me = has ? flip(be) : 0u;
+  p.mi = has ? ~(unsigned)bi : 0u;
+  p.eh = eh;
+  p.el = el;
+  p.ncoll = ncoll;
+  p.anyfree = anyfree;
+  warp_reduce(p);
+  {
+    // the warp's matched cluster lies with the lane that owns it
+    const int widx = (int)~p.mi;
+    if (lane == (p.mi ? (widx & 31) : 0)) {
+      if (p.mi) {
+        p.r2e = t.r2e[widx];
+        p.rst = t.rst[widx];
+        p.est = t.est[widx];
+      }
+      part[tid >> 5] = p;
+    }
+  }
   __syncthreads();
 
-  if (tid == 0) {
-    for (int w = 1; w < (nt + 31) / 32; ++w) combine(s, warp_scan[w]);
-    if (s.midx != INT_MAX) {
-      // SeedCluster::update on the matched cluster
-      const int m = s.midx;
-      const int a_r2e = f.r2e[m];
-      const bool overlaps = r2 < a_r2e;
-      const bool grows = r2e > a_r2e;
-      const int growth = overlaps ? (grows ? wsub(r2e, a_r2e) : 0) : mcv;
-      // the collision scan counted the matched cluster too when its
-      // OLD key equals (r2, e2)
-      const int self_coll = (f.r1[m] == r2 && f.e1[m] == e2) ? 1 : 0;
-      const bool lost = (s.ncoll - self_coll) > 0;
-      f.r1[m] = r2;
-      if (grows || !overlaps) f.r2e[m] = r2e;
-      f.e1[m] = e2;
-      const int new_tot = wadd(f.tot[m], growth);
-      f.tot[m] = new_tot;
-      if (lost) f.v[m] = 0;
-      f.ls = ((f.ls + (float)growth) + 0.0f) - 0.0f;
-      f.ncl = wsub(f.ncl, lost ? 1 : 0);
-      if (growth > 0 && new_tot >= min_aln_len && new_tot > f.mml) {
-        f.mml = new_tot;
-        f.mmrst = f.rst[m];
-        f.mmr1 = f.r1[m];
-        f.mmr2e = f.r2e[m];
-        f.mmest = f.est[m];
-        f.mme1 = f.e1[m];
+  // every warp combines the warps' partials (lane w reads warp w's)
+  Partial g;
+  if (lane < (nt >> 5)) {
+    g = part[lane];
+  } else {
+    g.mt = g.mr = g.me = g.mi = 0u;
+    g.eh = g.el = ~0u;
+    g.ncoll = g.anyfree = 0;
+  }
+  warp_reduce(g);
+
+  if (g.mi) {
+    // SeedCluster::update on the matched cluster
+    const int m = (int)~g.mi;
+    const Partial& pw = part[(m & (nt - 1)) >> 5];
+    const int a_r2e = pw.r2e;
+    const int tot_m = unflip(g.mt);
+    const int r1_m = unflip(g.mr);
+    const int e1_m = unflip(g.me);
+    const bool overlaps = r2 < a_r2e;
+    const bool grows = r2e > a_r2e;
+    const int growth = overlaps ? (grows ? wsub(r2e, a_r2e) : 0) : mcv;
+    // the collision count included the matched cluster (valid, being
+    // eligible) when its OLD key equals (r2, e2)
+    const int self_coll = (r1_m == r2 && e1_m == e2) ? 1 : 0;
+    const bool lost = (g.ncoll - self_coll) > 0;
+    const int new_r2e = (grows || !overlaps) ? r2e : a_r2e;
+    const int new_tot = wadd(tot_m, growth);
+    if (tid == (m & (nt - 1))) {
+      t.r1[m] = r2;
+      t.r2e[m] = new_r2e;
+      t.e1[m] = e2;
+      t.tot[m] = new_tot;
+      if (lost) t.v[m] &= ~1;  // either form: bit 0 of v is valid
+    }
+    sc.ls = __fsub_rn(__fadd_rn(__fadd_rn(sc.ls, (float)growth), 0.0f),
+                      0.0f);
+    sc.ncl = wsub(sc.ncl, lost ? 1 : 0);
+    if (growth > 0 && new_tot >= min_aln_len && new_tot > sc.mml) {
+      sc.mml = new_tot;
+      sc.mmrst = pw.rst;
+      sc.mmr1 = r2;
+      sc.mmr2e = new_r2e;
+      sc.mmest = pw.est;
+      sc.mme1 = e2;
+    }
+  } else {
+    // insert into a free slot, else evict the smallest cluster
+    const int m = (int)(g.el >> 2);
+    const int evicted_len = (g.el & 2) ? unflip(g.eh) : 0;
+    const int evicted_n = (int)(g.el & 1);
+    if (!g.anyfree) {
+      sc.ovf = 1;
+      sc.ovfw |= 1;
+    }
+    if (tid == (m & (nt - 1))) {
+      if (SHARED) {
+        t.v[m] = 3;
+      } else {
+        t.v[m] = 1;
+        t.cnt[m] = 1;
       }
-    } else {
-      // insert into a free slot, else evict the smallest cluster
-      const int m = s.eidx;
-      const int evicted_len = f.cnt[m] ? f.tot[m] : 0;
-      const int evicted_n = f.v[m] ? 1 : 0;
-      if (!s.anyfree) {
-        f.ovf = 1;
-        f.ovfw |= 1;
-      }
-      f.v[m] = 1;
-      f.cnt[m] = 1;
-      f.r1[m] = r2;
-      f.r2e[m] = r2e;
-      f.rst[m] = r2;
-      f.est[m] = e2;
-      f.e1[m] = e2;
-      f.tot[m] = mcv;
-      f.ls = ((f.ls + 0.0f) + (float)mcv) - (float)evicted_len;
-      f.ncl = wsub(wadd(f.ncl, 1), evicted_n);
-      if (mcv >= min_aln_len && mcv > f.mml) {
-        f.mml = mcv;
-        f.mmrst = r2;
-        f.mmr1 = r2;
-        f.mmr2e = r2e;
-        f.mmest = e2;
-        f.mme1 = e2;
-      }
+      t.r1[m] = r2;
+      t.r2e[m] = r2e;
+      t.rst[m] = r2;
+      t.est[m] = e2;
+      t.e1[m] = e2;
+      t.tot[m] = mcv;
+    }
+    sc.ls = __fsub_rn(__fadd_rn(__fadd_rn(sc.ls, 0.0f), (float)mcv),
+                      (float)evicted_len);
+    sc.ncl = wsub(wadd(sc.ncl, 1), evicted_n);
+    if (mcv >= min_aln_len && mcv > sc.mml) {
+      sc.mml = mcv;
+      sc.mmrst = r2;
+      sc.mmr1 = r2;
+      sc.mmr2e = r2e;
+      sc.mmest = e2;
+      sc.mme1 = e2;
     }
   }
-  __syncthreads();
 }
 
-// EXPANDED = false: tracker_fold_compact, read b's rows are
-//   ren/mc/evt[clamp(st_w[b] + r, 0, RT-1)], r < rows_eff[b];
-// EXPANDED = true: tracker_fold_rows, read b's rows are
-//   ren/mc/evt[b * R + r], r < min(rows_r[b], R), each gated by row_ok.
-template <bool EXPANDED>
-__global__ void tracker_fold_kernel(TrackerArgs a) {
-  __shared__ Scan warp_scan[32];
+// n elements src -> dst by the whole block, 16 bytes a move where both
+// ends are 16-byte aligned
+template <typename T>
+__device__ __forceinline__ void block_copy(T* dst, const T* src, int n) {
+  constexpr int V = 16 / sizeof(T);
+  const int tid = threadIdx.x, nt = blockDim.x;
+  int head = 0;
+  if (((reinterpret_cast<uintptr_t>(dst) |
+        reinterpret_cast<uintptr_t>(src)) & 15) == 0) {
+    const int nv = n / V;
+    for (int i = tid; i < nv; i += nt)
+      reinterpret_cast<uint4*>(dst)[i] = reinterpret_cast<const uint4*>(src)[i];
+    head = nv * V;
+  }
+  for (int i = head + tid; i < n; i += nt) dst[i] = src[i];
+}
+
+// the two flag arrays <-> one flags byte a cluster (bools are 0 or 1, so
+// whole words combine without carries)
+__device__ __forceinline__ void load_flags(uint8_t* fl, const uint8_t* v,
+                                           const uint8_t* cnt, int n) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  int head = 0;
+  if (((reinterpret_cast<uintptr_t>(fl) | reinterpret_cast<uintptr_t>(v) |
+        reinterpret_cast<uintptr_t>(cnt)) & 15) == 0) {
+    const int nv = n / 16;
+    for (int i = tid; i < nv; i += nt) {
+      const uint4 a = reinterpret_cast<const uint4*>(v)[i];
+      const uint4 b = reinterpret_cast<const uint4*>(cnt)[i];
+      reinterpret_cast<uint4*>(fl)[i] = make_uint4(
+          a.x | (b.x << 1), a.y | (b.y << 1), a.z | (b.z << 1),
+          a.w | (b.w << 1));
+    }
+    head = nv * 16;
+  }
+  for (int i = head + tid; i < n; i += nt) fl[i] = v[i] | (cnt[i] << 1);
+}
+
+__device__ __forceinline__ void store_flags(uint8_t* v, uint8_t* cnt,
+                                            const uint8_t* fl, int n) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  int head = 0;
+  if (((reinterpret_cast<uintptr_t>(fl) | reinterpret_cast<uintptr_t>(v) |
+        reinterpret_cast<uintptr_t>(cnt)) & 15) == 0) {
+    const int nv = n / 16;
+    const unsigned one = 0x01010101u;
+    for (int i = tid; i < nv; i += nt) {
+      const uint4 f = reinterpret_cast<const uint4*>(fl)[i];
+      reinterpret_cast<uint4*>(v)[i] =
+          make_uint4(f.x & one, f.y & one, f.z & one, f.w & one);
+      reinterpret_cast<uint4*>(cnt)[i] =
+          make_uint4((f.x >> 1) & one, (f.y >> 1) & one, (f.z >> 1) & one,
+                     (f.w >> 1) & one);
+    }
+    head = nv * 16;
+  }
+  for (int i = head + tid; i < n; i += nt) {
+    v[i] = fl[i] & 1;
+    cnt[i] = (fl[i] >> 1) & 1;
+  }
+}
+
+// the read's table in -> d: the output arrays, or (flags) shared memory
+template <bool FLAGS>
+__device__ __forceinline__ void copy_table(const Table& d, const TrackerArgs& a,
+                                           long long base, int CL) {
+  if (FLAGS) {
+    load_flags(d.v, a.v_in + base, a.c_in + base, CL);
+  } else {
+    block_copy(d.v, a.v_in + base, CL);
+    block_copy(d.cnt, a.c_in + base, CL);
+  }
+  block_copy(d.rst, a.rst_in + base, CL);
+  block_copy(d.r1, a.r1_in + base, CL);
+  block_copy(d.r2e, a.r2e_in + base, CL);
+  block_copy(d.est, a.est_in + base, CL);
+  block_copy(d.e1, a.e1_in + base, CL);
+  block_copy(d.tot, a.tot_in + base, CL);
+}
+
+// EXPANDED = false: tracker_fold_compact; EXPANDED = true:
+// tracker_fold_rows.  SHARED: the table lives in shared memory for the
+// whole fold; else in the output arrays (device memory).
+// Dynamic shared memory, in order: Partial [2][threads/32]; ren, mc, evt
+// stage [threads] i32; (SHARED) rst, r1, r2e, est, e1, tot [CLp] i32 and
+// the flags [CL16] u8; row_ok stage [threads] u8.  CLp = CL rounded up
+// to 4, CL16 to 16 (fold_smem_bytes).
+template <bool EXPANDED, bool SHARED>
+__global__ void __launch_bounds__(1024)
+    tracker_fold_kernel(const TrackerArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int CL = a.CL;
   const long long base = (long long)b * CL;
 
-  ReadFold f;
-  f.v = a.v + base;
-  f.cnt = a.c + base;
-  f.rst = a.rst + base;
-  f.r1 = a.r1 + base;
-  f.r2e = a.r2e + base;
-  f.est = a.est + base;
-  f.e1 = a.e1 + base;
-  f.tot = a.tot + base;
-  for (int c = tid; c < CL; c += nt) {
-    f.v[c] = a.v_in[base + c];
-    f.cnt[c] = a.c_in[base + c];
-    f.rst[c] = a.rst_in[base + c];
-    f.r1[c] = a.r1_in[base + c];
-    f.r2e[c] = a.r2e_in[base + c];
-    f.est[c] = a.est_in[base + c];
-    f.e1[c] = a.e1_in[base + c];
-    f.tot[c] = a.tot_in[base + c];
+  Partial* parts = reinterpret_cast<Partial*>(smem);
+  int32_t* s_ren = reinterpret_cast<int32_t*>(parts + 2 * (nt >> 5));
+  int32_t* s_mc = s_ren + nt;
+  int32_t* s_evt = s_mc + nt;
+  unsigned char* tail = reinterpret_cast<unsigned char*>(s_evt + nt);
+  Table out = {a.v + base, a.c + base, a.rst + base, a.r1 + base,
+               a.r2e + base, a.est + base, a.e1 + base, a.tot + base};
+  Table t = out;
+  if (SHARED) {
+    const int CLp = (CL + 3) & ~3, CL16 = (CL + 15) & ~15;
+    t.rst = reinterpret_cast<int32_t*>(tail);
+    t.r1 = t.rst + CLp;
+    t.r2e = t.r1 + CLp;
+    t.est = t.r2e + CLp;
+    t.e1 = t.est + CLp;
+    t.tot = t.e1 + CLp;
+    t.v = reinterpret_cast<uint8_t*>(t.tot + CLp);
+    t.cnt = nullptr;
+    tail = t.v + CL16;
   }
+  uint8_t* s_ok = tail;
 
-  // per-read scalars (thread 0 owns them)
-  f.ls = a.ls_in[b];
-  f.ncl = a.ncl_in[b];
-  f.mml = a.mml_in[b];
-  f.mmrst = a.mmrst_in[b];
-  f.mmr1 = a.mmr1_in[b];
-  f.mmr2e = a.mmr2e_in[b];
-  f.mmest = a.mmest_in[b];
-  f.mme1 = a.mme1_in[b];
-  f.ovf = a.ovf_in[b];
-  f.ovfw = a.ovfw_in[b];
+  Scalars sc;
+  sc.ls = a.ls_in[b];
+  sc.ncl = a.ncl_in[b];
+  sc.mml = a.mml_in[b];
+  sc.mmrst = a.mmrst_in[b];
+  sc.mmr1 = a.mmr1_in[b];
+  sc.mmr2e = a.mmr2e_in[b];
+  sc.mmest = a.mmest_in[b];
+  sc.mme1 = a.mme1_in[b];
+  sc.ovf = a.ovf_in[b];
+  sc.ovfw = a.ovfw_in[b];
 
   int nrows;
   long long st;
@@ -322,35 +495,77 @@ __global__ void tracker_fold_kernel(TrackerArgs a) {
     nrows = a.rows_eff[b];
     st = a.st_w[b];
   }
-  __syncthreads();
 
-  for (int r = 0; r < nrows; ++r) {
-    long long gi = st + r;
-    if (EXPANDED) {
-      if (!a.row_ok[gi]) {
-        // a gated-off row changes nothing; _tracker_add still maps
-        // len_sum to ((x + 0) + 0) - 0 (row_ok is uniform in the block)
-        if (tid == 0) f.ls = ((f.ls + 0.0f) + 0.0f) - 0.0f;
-        continue;
-      }
-    } else {
-      gi = gi < 0 ? 0 : (gi > a.RT - 1 ? a.RT - 1 : gi);
+  if (nrows <= 0) {
+    copy_table<false>(out, a, base, CL);  // nothing to fold
+  } else if (SHARED) {
+    copy_table<true>(t, a, base, CL);  // one load, then shared memory only
+  } else {
+    // each thread copies the clusters it owns: no barrier needed
+    for (int c = tid; c < CL; c += nt) {
+      out.v[c] = a.v_in[base + c];
+      out.cnt[c] = a.c_in[base + c];
+      out.rst[c] = a.rst_in[base + c];
+      out.r1[c] = a.r1_in[base + c];
+      out.r2e[c] = a.r2e_in[base + c];
+      out.est[c] = a.est_in[base + c];
+      out.e1[c] = a.e1_in[base + c];
+      out.tot[c] = a.tot_in[base + c];
     }
-    fold_row(f, CL, a.min_aln_len, a.ren[gi], a.mc[gi], a.evt[gi],
-             warp_scan);
   }
 
+  int par = 0;
+  for (int c0 = 0; c0 < nrows; c0 += nt) {
+    // stage the next `nt` rows (one a thread) ahead of their chain
+    if (c0 > 0) __syncthreads();
+    const int r = c0 + tid;
+    if (r < nrows) {
+      long long gi = st + r;
+      if (EXPANDED) {
+        s_ok[tid] = a.row_ok[gi];
+      } else {
+        gi = gi < 0 ? 0 : (gi > a.RT - 1 ? a.RT - 1 : gi);
+      }
+      s_ren[tid] = a.ren[gi];
+      s_mc[tid] = a.mc[gi];
+      s_evt[tid] = a.evt[gi];
+    }
+    __syncthreads();
+    const int n = nrows - c0 < nt ? nrows - c0 : nt;
+    for (int i = 0; i < n; ++i) {
+      if (EXPANDED && !s_ok[i]) {
+        // a gated-off row changes nothing; _tracker_add still maps
+        // len_sum to ((x + 0) + 0) - 0 (block-uniform)
+        sc.ls = __fsub_rn(__fadd_rn(__fadd_rn(sc.ls, 0.0f), 0.0f), 0.0f);
+        continue;
+      }
+      fold_row<SHARED>(t, sc, CL, a.min_aln_len, s_ren[i], s_mc[i],
+                       s_evt[i], parts + par * (nt >> 5));
+      par ^= 1;
+    }
+  }
+
+  if (SHARED && nrows > 0) {
+    __syncthreads();
+    store_flags(out.v, out.cnt, t.v, CL);
+    block_copy(out.rst, t.rst, CL);
+    block_copy(out.r1, t.r1, CL);
+    block_copy(out.r2e, t.r2e, CL);
+    block_copy(out.est, t.est, CL);
+    block_copy(out.e1, t.e1, CL);
+    block_copy(out.tot, t.tot, CL);
+  }
   if (tid == 0) {
-    a.ls[b] = f.ls;
-    a.ncl[b] = f.ncl;
-    a.mml[b] = f.mml;
-    a.mmrst[b] = f.mmrst;
-    a.mmr1[b] = f.mmr1;
-    a.mmr2e[b] = f.mmr2e;
-    a.mmest[b] = f.mmest;
-    a.mme1[b] = f.mme1;
-    a.ovf[b] = (uint8_t)(f.ovf != 0);
-    a.ovfw[b] = f.ovfw;
+    a.ls[b] = sc.ls;
+    a.ncl[b] = sc.ncl;
+    a.mml[b] = sc.mml;
+    a.mmrst[b] = sc.mmrst;
+    a.mmr1[b] = sc.mmr1;
+    a.mmr2e[b] = sc.mmr2e;
+    a.mmest[b] = sc.mmest;
+    a.mme1[b] = sc.mme1;
+    a.ovf[b] = (uint8_t)(sc.ovf != 0);
+    a.ovfw[b] = sc.ovfw;
   }
 }
 
@@ -395,11 +610,37 @@ static void unpack_state(void** p, TrackerArgs& a) {
   a.ovfw = (int32_t*)p[35];
 }
 
-static int threads_for(int CL) { return CL >= 8192 ? 1024 : 256; }
+// the kernel's dynamic shared memory (ops/tracker_kernel.py
+// fold_smem_bytes computes the same)
+static size_t fold_smem_bytes(int CL, int threads, int shared) {
+  size_t n = 2 * (size_t)(threads / 32) * sizeof(Partial) +
+             (size_t)threads * 13;
+  if (shared) n += 24 * (size_t)((CL + 3) & ~3) + (size_t)((CL + 15) & ~15);
+  return n;
+}
+
+// threads, shared and smem come from ops/tracker_kernel.py fold_launch;
+// they are checked here against the kernel's layout
+template <bool EXPANDED>
+static int launch_fold(const TrackerArgs& a, int threads, int shared,
+                       int smem, void* stream) {
+  if (threads < 32 || threads > 1024 || (threads & (threads - 1)) ||
+      a.CL < 1 || (size_t)smem != fold_smem_bytes(a.CL, threads, shared))
+    return (int)cudaErrorInvalidValue;
+  void (*k)(const TrackerArgs) = shared
+                                     ? tracker_fold_kernel<EXPANDED, true>
+                                     : tracker_fold_kernel<EXPANDED, false>;
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return (int)e;
+  k<<<a.B, threads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
 
 // p[36..40]: ren, mc, evt [RT] i32, st_w, rows_eff [B] i32
 extern "C" int tracker_fold_compact(void** p, int B, int CL, int RT,
-                                    int min_aln_len, void* stream) {
+                                    int min_aln_len, int threads, int shared,
+                                    int smem, void* stream) {
   if (B == 0) return 0;
   TrackerArgs a = {};
   unpack_state(p, a);
@@ -412,14 +653,13 @@ extern "C" int tracker_fold_compact(void** p, int B, int CL, int RT,
   a.CL = CL;
   a.RT = RT;
   a.min_aln_len = min_aln_len;
-  tracker_fold_kernel<false>
-      <<<B, threads_for(CL), 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch_fold<false>(a, threads, shared, smem, stream);
 }
 
 // p[36..40]: ren, mc, evt [B, R] i32, row_ok [B, R] u8, rows_r [B] i32
 extern "C" int tracker_fold_rows(void** p, int B, int CL, int R,
-                                 int min_aln_len, void* stream) {
+                                 int min_aln_len, int threads, int shared,
+                                 int smem, void* stream) {
   if (B == 0) return 0;
   TrackerArgs a = {};
   unpack_state(p, a);
@@ -432,7 +672,5 @@ extern "C" int tracker_fold_rows(void** p, int B, int CL, int R,
   a.CL = CL;
   a.R = R;
   a.min_aln_len = min_aln_len;
-  tracker_fold_kernel<true>
-      <<<B, threads_for(CL), 0, (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch_fold<true>(a, threads, shared, smem, stream);
 }

@@ -10,6 +10,7 @@ on a non-zero code.
 
 ``COUNTS`` holds one plain integer per kernel: its wrapper adds one where
 it launches the kernel, so a run can show the main path went through it.
+The two tracker folds also count which of their two forms ran.
 """
 
 from __future__ import annotations
@@ -40,8 +41,8 @@ _FUNCS = {
     "flat_gather_cols_i32": ("flat_gather", "qpp"),
     "pair_counts_i32": ("flat_gather", "ppiiip"),
     "ring_assemble_i32": ("stepkern", "ppppppii"),
-    "tracker_fold_compact": ("tracker_kernel", "aiiii"),
-    "tracker_fold_rows": ("tracker_kernel", "aiiii"),
+    "tracker_fold_compact": ("tracker_kernel", "aiiiiiii"),
+    "tracker_fold_rows": ("tracker_kernel", "aiiiiiii"),
     "row_gather_cols_i32": ("row_gather", "qpp"),
     "merge_level_i32": ("sortkern", "aiiii"),
 }
@@ -52,6 +53,11 @@ COUNTS = {
     "ring_assemble": 0,
     "tracker_fold": 0,
     "tracker_fold_rows": 0,
+    # which form of the two folds ran (ops/tracker_kernel.py fold_launch)
+    "tracker_fold_shared": 0,
+    "tracker_fold_device": 0,
+    "tracker_fold_rows_shared": 0,
+    "tracker_fold_rows_device": 0,
     "row_gather": 0,
     "merge_level": 0,
 }

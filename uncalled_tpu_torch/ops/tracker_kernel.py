@@ -14,15 +14,18 @@ f32 ``len_sum`` in the reference's operation order and the best-cluster
 The plain versions are the row-by-row ``engine._tracker_add`` fold as the
 JAX steps run it without the kernel: every read steps through the batch's
 maximum row count, rows past its own count gated off.  The CUDA kernels
-(``csrc/tracker_kernel.cu``, one per-row update shared by both) fold each
-read in its own block over its own rows only; a gated-off row changes
-nothing (it maps ``len_sum`` to ``((x + 0) + 0) - 0``, which is ``x`` for
-every value the fold produces: it never makes -0.0).
+(``csrc/tracker_kernel.cu``, one kernel template for both) fold each read
+in its own block over its own rows only; a gated-off row changes nothing
+(it maps ``len_sum`` to ``((x + 0) + 0) - 0``, which is ``x`` for every
+value the fold produces: it never makes -0.0).  :func:`fold_launch` picks
+the kernel's form and launch shape by CL: the table in shared memory for
+the whole fold up to ``SHARED_MAX_CL``, in device memory above it.
 """
 
 from __future__ import annotations
 
 from types import SimpleNamespace
+from typing import NamedTuple
 
 import torch
 
@@ -40,6 +43,68 @@ _SCALARS = (
     "mm_evt_st", "mm_evt_en", "ovf", "ovf_why",
 )
 _DTYPE = {"cl_valid": U8, "cl_count": U8, "len_sum": F32, "ovf": U8}
+
+# Shared memory one block may take on the H100 (227 KB, opt-in above 48 KB).
+SHARED_LIMIT = 232_448
+# The widest table kept in shared memory: the largest power of two whose
+# table (25 bytes a cluster), row staging and partials fit SHARED_LIMIT
+# at 1024 threads (221,184 bytes at 8192).  Wider tables (the pooled eject
+# tiers' 16384 and 65536) take the device-memory form.
+SHARED_MAX_CL = 8192
+_PARTIAL_BYTES = 48  # sizeof(Partial) in csrc/tracker_kernel.cu
+
+
+class FoldLaunch(NamedTuple):
+    form: str  # "shared" (table in shared memory) or "device"
+    threads: int
+    smem: int  # dynamic shared-memory bytes
+
+
+def fold_smem_bytes(CL: int, threads: int, shared: bool) -> int:
+    """The kernel's dynamic shared memory: two [threads/32] halves of warp
+    partials, the staged rows (ren, mc, evt i32 and row_ok u8 a thread)
+    and, in the shared form, the table (six i32 fields at CL rounded up to
+    4, the valid and count flags in one byte at CL rounded up to 16)."""
+    n = 2 * (threads // 32) * _PARTIAL_BYTES + 13 * threads
+    if shared:
+        n += 24 * (-(-CL // 4) * 4) + -(-CL // 16) * 16
+    return n
+
+
+_SMS, _WARPS_PER_SM = 132, 16  # the H100's SMs; fold_launch's target
+
+
+def fold_launch(CL: int, B: int) -> FoldLaunch:
+    """Form and launch shape of both folds at table width CL for B reads.
+
+    Threads: the smallest power of two >= CL/4 in [32, 1024] (about four
+    clusters a thread keep the row's scan short while few warps share an
+    SM and the row is a latency chain), halved while B blocks would put
+    more than _WARPS_PER_SM warps on each of the _SMS SMs (then the row is
+    bound by instruction issue, and every warp pays the reductions and the
+    update whatever its share of clusters; chip_smoke.py times the pooled
+    fold at each width).  The table lives in shared memory for
+    CL <= SHARED_MAX_CL, else in device memory."""
+    if CL < 1:
+        raise ValueError(f"tracker: CL={CL}, expected >= 1")
+    threads = 32
+    while threads < 1024 and 4 * threads < CL:
+        threads *= 2
+    while threads > 32 and B * threads > _SMS * _WARPS_PER_SM * 32:
+        threads //= 2
+    shared = CL <= SHARED_MAX_CL
+    smem = fold_smem_bytes(CL, threads, shared)
+    if smem > SHARED_LIMIT:
+        raise ValueError(f"tracker: CL={CL} needs {smem} B of shared memory")
+    return FoldLaunch("shared" if shared else "device", threads, smem)
+
+
+def _launch(kernel, count, ptrs, B, CL, n, min_aln_len):
+    fl = fold_launch(CL, B)
+    _cuda.launch(kernel, ptrs, B, CL, n, int(min_aln_len), fl.threads,
+                 int(fl.form == "shared"), fl.smem)
+    _cuda.COUNTS[count] += 1
+    _cuda.COUNTS[f"{count}_{fl.form}"] += 1
 
 
 def _check_state(st, dev):
@@ -97,8 +162,8 @@ def tracker_run_compact(min_aln_len, st, rr_ref_en, rr_mc, rr_evt, st_w,
         + [out[k] for k in _TABLES] + [out[k] for k in _SCALARS]
         + [rr_ref_en, rr_mc, rr_evt, st_w, rows_eff]
     )
-    _cuda.launch("tracker_fold_compact", ptrs, B, CL, RT, int(min_aln_len))
-    _cuda.COUNTS["tracker_fold"] += 1
+    _launch("tracker_fold_compact", "tracker_fold", ptrs, B, CL, RT,
+            min_aln_len)
     return out
 
 
@@ -141,6 +206,6 @@ def tracker_run(min_aln_len, st, ref_en, mc, evt, row_ok, rows_r):
         + [out[k] for k in _TABLES] + [out[k] for k in _SCALARS]
         + [ref_en, mc, evt, row_ok, rows_r]
     )
-    _cuda.launch("tracker_fold_rows", ptrs, B, CL, R, int(min_aln_len))
-    _cuda.COUNTS["tracker_fold_rows"] += 1
+    _launch("tracker_fold_rows", "tracker_fold_rows", ptrs, B, CL, R,
+            min_aln_len)
     return out
