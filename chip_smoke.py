@@ -11,8 +11,11 @@ verdict, printed only when every phase passed):
    and the build of every kernel from ``uncalled_tpu_torch/csrc``;
 2. each kernel against its plain PyTorch version on the card, on seeded
    inputs at the main paths' full shapes (pooled: B=256, S=98304,
-   SC=122880, CL=2048, RT=6144, RING=23, the bitonic merge levels of the
-   candidate sort at NP=131072 and the wide tier's NP=32768; classic: the
+   SC=122880, CL=2048, RT=6144, RING=23 (and an S with S*RING % 4 != 0),
+   the bitonic merge levels of the candidate sort at the JAX kernel's
+   strides at NP=131072 and the wide tier's NP=32768, the run sort and the
+   merge level to stride 1 at NP 8192 ... 131072, padded and with whole
+   tuples tied; classic: the
    row gathers of the B=64 rung and the final rung, the row fold at
    B=64/CL=1024/R=256 and B=32/CL=4096/R=1024): bits must be equal;
    kernel, plain and (where one PyTorch call computes the same function)
@@ -20,7 +23,9 @@ verdict, printed only when every phase passed):
    once packed their fields into a table (pooled parent pack, the
    unified record table's five segments, classic parent pack), each
    against that pack plus one library gather; the whole bitonic sort
-   against the flat sort; both forms of both tracker folds (the table in
+   against the flat sort, with its launches, each launch's device time
+   and a sweep of its schedule (run width, tile, fused strides); both
+   forms of both tracker folds (the table in
    shared memory up to CL=8192, in device memory above) at the widths the
    mappers use, in three occupancy regimes and on an adversarial tie
    case, with the launches of each form; the timed folds' longest read
@@ -51,8 +56,9 @@ verdict, printed only when every phase passed):
    on phase 4's reads at B=256, T=32: reads/s, ms per step, slot
    utilisation over every mapper of the chain, handoffs, migrations, the
    drain widths, ejects per tier, launches per kernel per step, peak
-   memory, a profiled block; the first step's merge-level inputs are
-   re-checked against the plain version; every read is yielded, with the
+   memory, a profiled block; the first full-width sort's run-sort and
+   merge-level inputs are re-checked against the plain versions; every
+   read is yielded, with the
    very line phase 4 gave it;
 
 then the ``{"kernels": [...]}`` line and the verdict.
@@ -87,7 +93,7 @@ POOLED_KERNELS = ("flat_gather", "pair_counts", "ring_assemble",
                   "tracker_fold")
 CLASSIC_KERNELS = ("row_gather", "tracker_fold_rows")
 # the pooled path at the conf defaults (phase 6) adds the bitonic sort's
-DEFAULT_KERNELS = POOLED_KERNELS + ("merge_level",)
+DEFAULT_KERNELS = POOLED_KERNELS + ("sort_runs", "merge_level")
 NK_SORT = 5  # the step's candidate sort keys
 
 KERNELS = {
@@ -112,6 +118,10 @@ KERNELS = {
     "merge_level": dict(
         route="cuda", source="uncalled_tpu_torch/csrc/sortkern.cu",
         replaces="uncalled_tpu/ops/sortkern.py:69"),
+    # no Pallas kernel: the XLA row sorts (lax.sort) of the JAX sort
+    "sort_runs": dict(
+        route="cuda", source="uncalled_tpu_torch/csrc/sortkern.cu",
+        replaces="uncalled_tpu/mapping/pooled.py:379-397"),
 }
 STEMS = ("flat_gather", "row_gather", "sortkern", "stepkern",
          "tracker_kernel")
@@ -859,6 +869,10 @@ def phase_kernels(out, rate):
                  lambda: sk.ring_assemble_plain(*args), None,
                  nbytes=old.numel() * 8 + S_FULL * 13,
                  shape=f"ring {tuple(old.shape)}")
+    # S * RING % 4 == 1: the last thread's four words run past the ring
+    tail = tuple(x[: S_FULL - 1] for x in args)
+    ok &= check("ring_assemble[S=98303, S*RING % 4 = 1]",
+                sk.ring_assemble(*tail), sk.ring_assemble_plain(*tail))
 
     # tracker fold
     st, ren, mc, evt, st_w, rows = tracker_case(rng, dev)
@@ -1058,16 +1072,19 @@ def fold_forms(counts):
 
 
 def phase_merge(out, rate, rng, dev):
-    """The bitonic merge level at the step's candidate-sort shapes (NK=5
-    keys of NP=131072 at SC=122880: levels 16384 and 32768 at C=128,
-    65536 and 131072 at C=1024; the wide tier's NP=32768), then the whole
-    bitonic sort against the flat sort."""
+    """The bitonic candidate sort's kernels at the step's shapes (NK=5
+    keys, SC=122880 padded to NP=131072; the wide tier's NP=32768): the
+    merge level at the JAX kernel's strides (levels 16384 and 32768 at
+    C=128, 65536 and 131072 at C=1024), the run sort and the merge level
+    to stride 1 at NP 8192 ... 131072 (with padding, and with whole tuples
+    tied), then the whole sort against the flat sort: its launches, each
+    launch's device time, and the schedule sweep."""
     import torch
 
-    from uncalled_tpu_torch.mapping import pooled as pm
     from uncalled_tpu_torch.ops import sortkern as sk
 
     res = out["kernels"]
+    shapes = out["kernel_shapes"]
     ok = True
     for NP, levels in ((131072, ((16384, 128), (32768, 128), (65536, 1024),
                                  (131072, 1024))),
@@ -1077,7 +1094,7 @@ def phase_merge(out, rate, rng, dev):
             label = f"NP={NP} k_lv={k_lv} C={C}"
             head = (NP, k_lv) == (131072, 16384)
             ok &= report(
-                res if head else out["kernel_shapes"], "merge_level",
+                res if head else shapes, "merge_level",
                 sk.merge_level(ks, k_lv, C), sk.merge_level_plain(ks, k_lv, C),
                 rate, lambda ks=ks, k_lv=k_lv, C=C: sk.merge_level(ks, k_lv, C),
                 lambda ks=ks, k_lv=k_lv, C=C: sk.merge_level_plain(ks, k_lv,
@@ -1085,21 +1102,117 @@ def phase_merge(out, rate, rng, dev):
                 None, nbytes=2 * NK_SORT * NP * 4,
                 key=None if head else f"merge_level[{label}]",
                 shape=f"NK={NK_SORT} {label}")
-    # the whole candidate sort at SC: bitonic (four merge levels) vs flat
+    # the run sort (headline: the step's SC padded to NP, runs of RUN_TILE)
+    # and the merge level to stride 1, against their plain versions
+    for n, iota in ((SC_FULL, True), (131072, True), (32768, True),
+                    (16384, True), (8192, True), (20000, False),
+                    (5000, False)):
+        ks = sort_keys_case(rng, dev, n)
+        if not iota:  # few values and no creation index: whole tuples tie
+            ks[4] = ks[4] % 2
+        NP = 1 << (max(n, 8192) - 1).bit_length()
+        W = min(sk.RUN_TILE, NP)
+        label = f"N={n} NP={NP} W={W}{'' if iota else ' ties'}"
+        head = n == SC_FULL
+        ok &= report(
+            res if head else shapes, "sort_runs", sk.sort_runs(ks, NP, W),
+            torch.stack(sk.sort_runs_plain(ks, NP, W)), rate,
+            lambda ks=ks, NP=NP, W=W: sk.sort_runs(ks, NP, W),
+            lambda ks=ks, NP=NP, W=W: sk.sort_runs_plain(ks, NP, W), None,
+            nbytes=NK_SORT * (n + NP) * 4,
+            key=None if head else f"sort_runs[{label}]",
+            shape=f"NK={NK_SORT} {label}")
+        pad = [torch.cat([k, torch.full((NP - n,), 2**31 - 1,
+                                        dtype=torch.int32, device=dev)])
+               for k in ks]
+        for k_lv in sorted({min(2 * W, NP), NP}):
+            ok &= check(f"merge_level[{label} k_lv={k_lv} C=1]",
+                        sk.merge_level(pad, k_lv, 1),
+                        sk.merge_level_plain(pad, k_lv, 1))
+    ks = sort_keys_case(rng, dev, 131072)
+    ok &= report(shapes, "merge_level", sk.merge_level(ks, 131072, 1),
+                 sk.merge_level_plain(ks, 131072, 1), rate,
+                 lambda: sk.merge_level(ks, 131072, 1),
+                 lambda: sk.merge_level_plain(ks, 131072, 1), None,
+                 nbytes=2 * NK_SORT * 131072 * 4,
+                 key="merge_level[NP=131072 k_lv=131072 C=1]",
+                 shape=f"NK={NK_SORT} NP=131072 k_lv=131072 C=1")
+    ok &= phase_sort(out, rng, dev)
+    return ok
+
+
+def phase_sort(out, rng, dev):
+    """The whole candidate sort at SC: bitonic (the run sort and every merge
+    level) against the flat sort, bit for bit; device ms of both, the
+    bitonic sort's launches and each launch's device ms, and the device ms
+    of the schedules the sweep tries (the run width W, the tail's tile T,
+    the strides R a device-memory launch fuses)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from uncalled_tpu_torch.mapping import pooled as pm
+    from uncalled_tpu_torch.ops import _cuda
+    from uncalled_tpu_torch.ops import sortkern as sk
+
     ks = sort_keys_case(rng, dev, SC_FULL)
-    bit = pm._sort1d_bitonic(ks)
-    flat = pm._sort1d(ks)
-    eq = check("sort1d_bitonic vs flat sort", bit, flat)
+    eq = check("sort1d_bitonic vs flat sort", pm._sort1d_bitonic(ks),
+               pm._sort1d(ks))
+    before = dict(_cuda.COUNTS)
+    pm._sort1d_bitonic(ks)
+    calls = {k: _cuda.COUNTS[k] - before[k] for k in ("sort_runs",
+                                                      "merge_level")}
+    NP = 131072
+    sched = sk.sort_schedule(NP, min(sk.RUN_TILE, NP),
+                             sk.tile_for(sk.MERGE_TILE, NP, NK_SORT),
+                             sk.FUSE_R)
+    # each launch's device time: the last of three traced sorts (a trace
+    # can lose its first events)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            pm._sort1d_bitonic(ks)
+        torch.cuda.synchronize()
+    each = [(e["name"][:60], float(e["dur"]) / 1e3)
+            for e in sorted(trace_events(prof, "sort_one"),
+                            key=lambda e: float(e["ts"]))][-len(sched):]
     bitonic_ms, flat_ms = device_ms(
         [(lambda: pm._sort1d_bitonic(ks), 20), (lambda: pm._sort1d(ks), 20)],
         tag="sort")
+    keep = (sk.RUN_TILE, sk.MERGE_TILE, sk.FUSE_R)
+    cfgs = [(W, T, R) for W in (512, 1024, 2048, 8192)
+            for T in (512, 1024, 2048, 8192) for R in (2, 3, 4)]
+
+    def at(c):
+        sk.RUN_TILE, sk.MERGE_TILE, sk.FUSE_R = c
+        pm._sort1d_bitonic(ks)
+
+    try:
+        sweep = device_ms([(lambda c=c: at(c), 10) for c in cfgs],
+                          tag="sort_sweep")
+        sched_ok = True
+        for c in cfgs:
+            at(c)
+            sched_ok &= same_bits(pm._sort1d_bitonic(ks), pm._sort1d(ks))
+    finally:
+        sk.RUN_TILE, sk.MERGE_TILE, sk.FUSE_R = keep
     out["sort_compare"] = dict(
         n=SC_FULL, equal=eq, bitonic_ms=bitonic_ms, flat_ms=flat_ms,
         bitonic_call_ms=time_ms(lambda: pm._sort1d_bitonic(ks)),
         flat_call_ms=time_ms(lambda: pm._sort1d(ks)),
+        wrapper_calls=calls, launches=len(sched), launch_ms=each,
+        schedule=[list(x) for x in sched],
+        schedule_floor_ms=len(sched) * 2 * NK_SORT * NP * 4
+        / hbm_rate(out["card"]) * 1e3,
+        default=dict(W=keep[0], T=keep[1], R=keep[2]),
+        sweep={f"W={W} T={T} R={R}": m for (W, T, R), m in zip(cfgs, sweep)},
+        sweep_equal=sched_ok,
     )
     log("[2] whole sort at SC=122880: " + json.dumps(out["sort_compare"]))
-    return ok and eq
+    best = min(out["sort_compare"]["sweep"].items(), key=lambda kv: kv[1])
+    log(f"[2] sort schedule sweep: fastest {best[0]} {best[1]:.4f} ms; "
+        f"default W={keep[0]} T={keep[1]} R={keep[2]}")
+    levels = (NP // min(keep[0], NP)).bit_length() - 1
+    return eq and sched_ok and calls == dict(sort_runs=1, merge_level=levels)
 
 
 def live_fold_time(name, fn, rows_longest, rows_total, shape):
@@ -1312,6 +1425,7 @@ def phase_golden_defaults(out, fmi, th, golden, sigs):
     ok &= run("handoff B=2", conf_of(2), allr,
               lambda bm, i, c: (i["handoff"] and i["n_handoff"] > 0
                                 and i["sort_mode"] == "bitonic"
+                                and c["sort_runs"] > 0
                                 and all(c[k] > 0 for k in POOLED_KERNELS)))
     # B=8 at 2048 slots per read (SC=20480, NP=32768: two merge levels per
     # step): handoff, tail-mode disarm, the drain chain, bitonic merges.
@@ -1320,6 +1434,7 @@ def phase_golden_defaults(out, fmi, th, golden, sigs):
     ok &= run("handoff+drain+bitonic B=8", conf_of(8, 2048),
               [r for r in allr if r.startswith("sim_")],
               lambda bm, i, c: (i["n_handoff"] > 0 and len(i["drains"]) > 1
+                                and c["sort_runs"] > 0
                                 and c["merge_level"] > 0))
     # drain by migration (tests/test_pooled.py): B=8 drains at this scale
     conf = conf_of(8, 512, 16)
@@ -1776,19 +1891,25 @@ def phase_defaults(out):
     n_warm = sum(1 for _ in bm.map_reads(warm))
     log(f"[6] warm-up: {n_warm} reads in {time.time() - t0:.2f} s")
 
-    # the timed run; the first step's merge-level inputs are captured
+    # the timed run; the first full-width sort's inputs are captured: the
+    # run sort's keys and each merge level's buffer
     captured = []
-    orig = pooled.merge_level
+    orig = (pooled.sort_runs, pooled.merge_level_)
 
-    def cap(ks, k_lv, C):
-        if len(captured) < 4 and ks[0].shape[0] == 131072:
-            captured.append(([k.clone() for k in ks], k_lv, C))
-        return orig(ks, k_lv, C)
+    def cap_runs(keys, NP, W):
+        if not captured and NP == 131072:
+            captured.append(("sort_runs", [k.clone() for k in keys], NP, W))
+        return orig[0](keys, NP, W)
+
+    def cap_level(buf, k_lv, C):
+        if captured and len(captured) < 5 and buf.shape[1] == 131072:
+            captured.append(("merge_level", buf.clone(), k_lv, C))
+        return orig[1](buf, k_lv, C)
 
     truth = {r.id: (r.ref_name, r.ref_start, r.ref_end, r.fwd) for r in sim}
     timed = [_Read(r.id, r.signal) for r in sim[8:]]
     bm2 = BatchMapper(fmi, model, th, conf, engine=bm.eng)
-    pooled.merge_level = cap
+    pooled.sort_runs, pooled.merge_level_ = cap_runs, cap_level
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_counts()
@@ -1797,7 +1918,7 @@ def phase_defaults(out):
         pafs = list(bm2.map_reads(timed))
         torch.cuda.synchronize()
     finally:
-        pooled.merge_level = orig
+        pooled.sort_runs, pooled.merge_level_ = orig
     dt = time.time() - t0
     counts = dict(_cuda.COUNTS)
     chain = _chain(bm2)
@@ -1841,22 +1962,31 @@ def phase_defaults(out):
     log("[6] tracker fold forms: " + json.dumps(fold_forms(counts)))
     for r in differ[:5]:
         log(f"[6]   {r}: {lines4.get(r)!r} (phase 4) vs this run's line")
-    for i, (ks, k_lv, C) in enumerate(captured):
-        got, want = sk.merge_level(ks, k_lv, C), sk.merge_level_plain(ks, k_lv,
-                                                                        C)
+    for i, (name, a, n, w) in enumerate(captured):
+        if name == "sort_runs":
+            got = sk.sort_runs(a, n, w)
+            want = torch.stack(sk.sort_runs_plain(a, n, w))
+            what = f"NP={n}, W={w}"
+        else:
+            got = a.clone()
+            sk.merge_level_(got, n, w)
+            want = torch.stack(sk.merge_level_plain(list(a.unbind(0)), n, w))
+            what = f"k_lv={n}, C={w}"
         torch.cuda.synchronize()
         eq = same_bits(got, want)
         ok &= eq
-        log(f"[6] captured merge_level#{i} (k_lv={k_lv}, C={C}): "
+        log(f"[6] captured {name}#{i} ({what}): "
             f"{'bit-equal' if eq else 'MISMATCH'}")
-    ok &= len(captured) == 4
+    levels = (131072 // min(sk.RUN_TILE, 131072)).bit_length() - 1
+    ok &= len(captured) == 1 + min(levels, 4)
     out["defaults_profile"] = profile_block(bm2, timed)
     log("[6] profile: " + json.dumps(out["defaults_profile"]))
     ok &= (len(pafs) == len(timed) and not differ and n_mapped > 0
            and real["n_handoff"] > 0)
     ok &= all(counts[k] > 0 for k in DEFAULT_KERNELS)
-    if "merge_level" in out["kernels"]:
-        out["kernels"]["merge_level"]["launches"] = counts["merge_level"]
+    for k in ("sort_runs", "merge_level"):
+        if k in out["kernels"]:
+            out["kernels"][k]["launches"] = counts[k]
     return ok
 
 

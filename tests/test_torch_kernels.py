@@ -111,6 +111,106 @@ def test_ring_assemble_plain_matches_jax(seed):
     _eq(want, tring(_t(old), _t(rsrc), _t(rslot), _t(rval), _t(keep)))
 
 
+def _ring_model(old, rsrc, rslot, rval, keep):
+    """numpy model of csrc/stepkern.cu: thread t writes flat words 4t ...
+    4t+3 of the output rounded up to a multiple of four words; slot and
+    lane advance word by word, and words past S*RING repeat the last."""
+    S, RING = old.shape
+    total = S * RING
+    ob, vb = old.view(np.int32), rval.view(np.int32)
+    out = np.full(-(-total // 4) * 4, 12345, np.int32)
+    for t in range(len(out) // 4):
+        i, j = divmod(4 * t, RING)
+        for w in range(4):
+            sl, ln = (i, j) if 4 * t + w < total else (S - 1, RING - 1)
+            j += 1
+            if j == RING:
+                i, j = i + 1, 0
+            src = min(rsrc[sl], S - 1)
+            if not keep[sl]:
+                v = 0
+            elif ln == rslot[sl]:
+                v = vb[sl]
+            else:
+                v = ob[src, ln] if src >= 0 else 0
+            out[4 * t + w] = v
+    return out[:total].reshape(S, RING).view(np.float32)
+
+
+@pytest.mark.parametrize("S,RING", [(28, 23), (29, 23), (30, 23), (31, 23),
+                                    (33, 3), (5, 32), (1, 2)])
+def test_ring_flat_mapping_tails(S, RING):
+    """The kernel's flat four-word mapping at S*RING % 4 = 0, 3, 2, 1 (and
+    RING < 4, where four words span more than two slots) against the
+    plain version and the JAX kernel in interpret mode.  The JAX kernel
+    takes S % 4 == 0: it gets the slots padded with dropped rows and
+    copies of the last ring row, so its clamp of rsrc reads what S's does."""
+    import jax.numpy as jnp
+
+    from uncalled_tpu.ops.stepkern import ring_assemble
+
+    from uncalled_tpu_torch.ops.stepkern import ring_assemble as tring
+
+    rng = np.random.default_rng(S * 100 + RING)
+    old = rng.integers(-2**31, 2**31 - 1, (S, RING), dtype=np.int64).astype(
+        np.int32)
+    old.reshape(-1)[rng.integers(0, old.size, 8)] = [0, -2**31, 0x7F800000,
+                                                     -8388608, 0x7FC00123,
+                                                     -1, 0, -2**31]
+    old = old.view(np.float32)
+    rsrc = rng.integers(-1, S + 3, S).astype(np.int32)
+    rslot = rng.integers(-1, RING, S).astype(np.int32)
+    rval = rng.integers(-2**31, 2**31 - 1, S, dtype=np.int64).astype(
+        np.int32).view(np.float32)
+    keep = rng.random(S) < 0.8
+    model = _ring_model(old, rsrc, rslot, rval, keep)
+    _eq(model, tring(_t(old), _t(rsrc), _t(rslot), _t(rval), _t(keep)))
+    S4 = -(-S // 4) * 4
+    pad = S4 - S
+    want = ring_assemble(
+        jnp.asarray(np.concatenate([old, np.repeat(old[-1:], pad, 0)])),
+        jnp.asarray(np.concatenate([rsrc, np.full(pad, -1, np.int32)])),
+        jnp.asarray(np.concatenate([rslot, np.full(pad, -1, np.int32)])),
+        jnp.asarray(np.concatenate([rval, np.zeros(pad, np.float32)])),
+        jnp.asarray(np.concatenate([keep, np.zeros(pad, bool)])),
+        interpret=True)
+    _eq(np.asarray(want)[:S], model)
+
+
+def test_ring_wrapper_launch_off_the_cpu(monkeypatch):
+    """Off the CPU the wrapper hands the kernel a flat output of S*RING
+    words rounded up to four and returns its [S, RING] head."""
+    from uncalled_tpu_torch.ops import _cuda
+    from uncalled_tpu_torch.ops import stepkern as sk
+
+    seen = []
+
+    def fake_launch(name, *args):
+        seen.append((name, args[5].shape, args[6:]))
+
+    def refuse(*a):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(_cuda, "launch", fake_launch)
+    monkeypatch.setattr(_cuda, "COUNTS", dict.fromkeys(_cuda.COUNTS, 0))
+    monkeypatch.setattr(sk, "ring_assemble_plain", refuse)
+
+    def meta(*shape, dt=torch.int32):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    S, RING = 98303, 23
+    out = sk.ring_assemble(meta(S, RING, dt=torch.float32), meta(S),
+                           meta(S), meta(S, dt=torch.float32),
+                           meta(S, dt=torch.bool))
+    assert out.shape == (S, RING) and out.dtype == torch.float32
+    assert out.is_contiguous()
+    assert seen == [("ring_assemble_i32", (2260972,), (S, RING))]  # 2260969
+    assert _cuda.COUNTS["ring_assemble"] == 1
+    with pytest.raises(ValueError):
+        sk.ring_assemble(meta(S, 33, dt=torch.float32), meta(S), meta(S),
+                         meta(S, dt=torch.float32), meta(S, dt=torch.bool))
+
+
 def _rand_state(rng, B, CL, fill):
     occ = rng.random((B, CL)) < fill
     return {

@@ -14,10 +14,14 @@
 // Bound on the card: device memory — one [S, RING] ring read (rows in a
 // data-dependent order) and one written, no arithmetic.  The TPU kernel
 // kept the table in VMEM and unrolled scalar row copies to hide its
-// per-index gather cost; here one warp owns one slot: lane j < RING moves
-// element j, so a warp reads its source row as one contiguous 92-byte run
-// (three sectors) and writes its output row the same way, with the
-// slot's four scalars loaded once per warp (broadcast).
+// per-index gather cost.  Here the threads map onto the flat [S * RING]
+// output, four consecutive words each, written as one 16-byte store (the
+// wrapper allocates the output to a multiple of four words, so the last
+// thread's store stays inside it): every lane of every warp carries
+// output and the stores fill whole sectors.  A thread's four words span
+// at most two slots when RING >= 4; it issues the side loads (keep, rsrc,
+// rslot, rval) of all four words together, then the four row loads, so
+// its chain is two loads deep.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -29,31 +33,54 @@ __global__ void ring_assemble_kernel(const int32_t* __restrict__ old_ring,
                                      const uint8_t* __restrict__ keep,
                                      int32_t* __restrict__ out, int S,
                                      int RING) {
-  int warp = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  int j = threadIdx.x & 31;
-  if (warp >= S || j >= RING) return;
-  int i = warp;
-  int v = 0;
-  if (keep[i]) {
-    int src = rsrc[i];
-    if (j == rslot[i]) {
-      v = rval[i];
-    } else if (src >= 0) {
-      int s = src > S - 1 ? S - 1 : src;
-      v = old_ring[(long long)s * RING + j];
+  const int total = S * RING;
+  const int f0 = 4 * (blockIdx.x * blockDim.x + threadIdx.x);
+  if (f0 >= total) return;
+  // slot and lane of each word; words past the end (the allocation's
+  // padding) repeat the last word
+  int slot[4], lane[4];
+  int i = f0 / RING, j = f0 - i * RING;
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    bool in = f0 + w < total;
+    slot[w] = in ? i : S - 1;
+    lane[w] = in ? j : RING - 1;
+    if (++j == RING) {
+      j = 0;
+      ++i;
     }
   }
-  out[(long long)i * RING + j] = v;
+  uint8_t kp[4];
+  int src[4], rs[4], rv[4];
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    kp[w] = __ldg(keep + slot[w]);
+    src[w] = __ldg(rsrc + slot[w]);
+    rs[w] = __ldg(rslot + slot[w]);
+    rv[w] = __ldg(rval + slot[w]);
+  }
+  int o[4];
+#pragma unroll
+  for (int w = 0; w < 4; ++w) {
+    int s = src[w] > S - 1 ? S - 1 : src[w];
+    bool row = kp[w] && lane[w] != rs[w] && s >= 0;
+    int x = 0;
+    if (row) x = __ldg(old_ring + (long long)s * RING + lane[w]);
+    o[w] = kp[w] ? (lane[w] == rs[w] ? rv[w] : x) : 0;
+  }
+  *reinterpret_cast<int4*>(out + f0) = make_int4(o[0], o[1], o[2], o[3]);
 }
 
+// `out` holds S * RING words rounded up to a multiple of four, 16-byte
+// aligned; S * RING < 2^31.
 extern "C" int ring_assemble_i32(const void* old_ring, const void* rsrc,
                                  const void* rslot, const void* rval,
                                  const void* keep, void* out, int S, int RING,
                                  void* stream) {
   if (S == 0) return 0;
-  const int threads = 256;  // 8 slots per block
-  long long warps = S;
-  int blocks = (int)((warps * 32 + threads - 1) / threads);
+  const int threads = 256;
+  long long quads = ((long long)S * RING + 3) / 4;
+  int blocks = (int)((quads + threads - 1) / threads);
   ring_assemble_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)old_ring, (const int32_t*)rsrc, (const int32_t*)rslot,
       (const int32_t*)rval, (const uint8_t*)keep, (int32_t*)out, S, RING);

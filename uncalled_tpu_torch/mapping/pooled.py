@@ -9,12 +9,12 @@ or a flat gather.  Semantics are the reference mapper's event loop
 dict of tensors with the JAX state's keys and dtypes, and every event
 leaves it bit-identical to the JAX step's (tests/test_torch_pooled_step.py).
 
-On the card five hand-written CUDA kernels carry the step: the flat
-gather behind every ``_flat_take`` and ``flat_gather_cols`` (which reads
-the fields it gathers where they lie, with no pack), the per-read k-mer
-pair count, the ring assembly, the compact seed-tracker fold and, in the
-bitonic candidate sort, the merge level.  The step does no host
-synchronisation: every shape is static.
+On the card hand-written CUDA kernels carry the step: the flat gather
+behind every ``_flat_take`` and ``flat_gather_cols`` (which reads the
+fields it gathers where they lie, with no pack), the per-read k-mer pair
+count, the ring assembly, the compact seed-tracker fold and, in the
+bitonic candidate sort, the run sort and the merge levels.  The step
+does no host synchronisation: every shape is static.
 
 Both candidate sorts run: ``sort_mode="bitonic"`` (the default on the
 card, as JAX's on its accelerator) and ``"flat"`` (the CPU default).  The
@@ -34,7 +34,14 @@ from ..config import Conf
 from ..device import resolve
 from ..kmer import KMER_COUNT
 from ..ops.flat_gather import flat_gather, flat_gather_cols, pair_counts
-from ..ops.sortkern import merge_level
+from ..ops import sortkern
+from ..ops.sortkern import (
+    merge_level,
+    merge_level_,
+    sort_runs,
+    sort_runs_plain,
+)
+from ..ops.sortkern import rowsort_plain as _rowsort
 from ..ops.stepkern import ring_assemble
 from ..ops.tracker_kernel import tracker_run_compact
 from .engine import (
@@ -270,51 +277,26 @@ def _sort1d(keys, payloads=(), num_keys=None):
     return tuple(a.index_select(0, perm) for a in (*keys, *payloads))
 
 
-def _rowsort(ks, width: int, k_level: int):
-    """Row-parallel ascending lexicographic sort of [NP] int32 key tuples
-    viewed as [NP/width, width] rows; row r descends iff (r*width &
-    k_level) != 0, by the bitwise-NOT trick (~ reverses int32 order).
-    Stable passes along dim 1, two keys per int64 pass (high key in the
-    upper 32 bits, low key offset into [0, 2^32))."""
-    NP = ks[0].shape[0]
-    G = NP // width
-    dev = ks[0].device
-    desc = (((torch.arange(G, dtype=I32, device=dev) * width) & k_level)
-            != 0)[:, None]
-    ops = [torch.where(desc, torch.bitwise_not(a.reshape(G, width)),
-                       a.reshape(G, width)) for a in ks]
-    packed = []
-    for q in range(len(ops) % 2, len(ops), 2):
-        packed.append((ops[q].to(torch.int64) << 32)
-                      + (ops[q + 1].to(torch.int64) + 2**31))
-    if len(ops) % 2:
-        packed.insert(0, ops[0])
-    perm = None
-    for k in reversed(packed):
-        kk = k if perm is None else torch.gather(k, 1, perm)
-        order = torch.sort(kk, dim=1, stable=True).indices
-        perm = order if perm is None else torch.gather(perm, 1, order)
-    return [torch.where(desc, torch.bitwise_not(r), r).reshape(NP)
-            for r in (torch.gather(a, 1, perm) for a in ops)]
-
-
 def _sort1d_bitonic(keys):
-    """Flat ascending lexicographic sort of int32 key tuples by a hybrid
-    bitonic merge (the JAX ``_sort1d_bitonic`` on its kernel path): keys
-    pad with INT32_MAX to NP = the next power of two >= max(N, 8192);
-    row sorts build runs of 8192 in alternating directions; each level
-    k_lv = 16384 ... NP runs its stride >= C passes in ``merge_level`` (C =
-    128 for k_lv <= 32768, else 1024) and finishes with a row sort of
-    width C.  Every key is compared, so the result equals a full
-    lexicographic sort of the tuples exactly."""
+    """Flat ascending lexicographic sort of int32 key tuples by a bitonic
+    network (the JAX ``_sort1d_bitonic`` on its kernel path): keys pad with
+    INT32_MAX to NP = the next power of two >= max(N, 8192).  Every key is
+    compared, so the result equals a full lexicographic sort of the tuples
+    exactly, whatever schedule runs the network.
+
+    On the card (:func:`_sort1d_network`): the run sort, then each merge
+    level to stride 1, all on one [NK, NP] buffer.  On the CPU, the JAX
+    composition: row sorts build runs of 8192 in alternating directions;
+    each level k_lv = 16384 ... NP runs its stride >= C passes in
+    ``merge_level`` (C = 128 for k_lv <= 32768, else 1024) and finishes
+    with a row sort of width C."""
     N = keys[0].shape[0]
     C0 = 8192
     NP = 1 << (max(N, C0) - 1).bit_length()
-    ks = [torch.cat([k, torch.full((NP - N,), INT32_MAX, dtype=I32,
-                                   device=k.device)]) if NP > N else k
-          for k in keys]
+    if keys[0].device.type != "cpu":
+        return _sort1d_network(keys, NP)
     W0 = min(C0, NP)
-    ks = _rowsort(ks, W0, W0 if W0 < NP else NP)
+    ks = sort_runs_plain(keys, NP, W0)
     k_lv = 2 * W0
     while k_lv <= NP:
         C = 128 if k_lv <= 32768 else 1024
@@ -322,6 +304,20 @@ def _sort1d_bitonic(keys):
         ks = _rowsort(ks, min(C, NP), k_lv)
         k_lv *= 2
     return tuple(k[:N] for k in ks)
+
+
+def _sort1d_network(keys, NP):
+    """The card's bitonic sort: ``sort_runs`` in runs of
+    ``sortkern.RUN_TILE``, then ``merge_level_`` to stride 1 at every level
+    above, in place on the run sort's buffer; the first N of each plane."""
+    N = keys[0].shape[0]
+    W = min(sortkern.RUN_TILE, NP)
+    buf = sort_runs(keys, NP, W)
+    k_lv = 2 * W
+    while k_lv <= NP:
+        merge_level_(buf, k_lv, 1)
+        k_lv *= 2
+    return tuple(buf[q, :N] for q in range(len(keys)))
 
 
 def _flat_take(tbl, idx):

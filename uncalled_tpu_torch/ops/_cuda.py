@@ -44,7 +44,7 @@ _FUNCS = {
     "tracker_fold_compact": ("tracker_kernel", "aiiiiiii"),
     "tracker_fold_rows": ("tracker_kernel", "aiiiiiii"),
     "row_gather_cols_i32": ("row_gather", "qpp"),
-    "merge_level_i32": ("sortkern", "aiiii"),
+    "sort_net_i32": ("sortkern", "aiipiqi"),
 }
 
 COUNTS = {
@@ -60,6 +60,7 @@ COUNTS = {
     "tracker_fold_rows_device": 0,
     "row_gather": 0,
     "merge_level": 0,
+    "sort_runs": 0,
 }
 
 _libs: dict = {}

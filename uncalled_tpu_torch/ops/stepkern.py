@@ -7,7 +7,8 @@ child creation (PathBuffer::make_child, mapper.cpp:204-247).
 
 A plain PyTorch version plus a hand-written CUDA kernel
 (``csrc/stepkern.cu``), bit-exact to each other: the kernel moves the
-32-bit patterns, so NaN payloads and -0.0 survive the copy.
+32-bit patterns, so NaN payloads and -0.0 survive the copy.  The kernel
+maps its threads onto the flat [S * RING] output, four words each.
 """
 
 from __future__ import annotations
@@ -46,11 +47,15 @@ def ring_assemble(old_ring, rsrc, rslot, rval, keep):
         if t.shape[0] != S:
             raise ValueError(f"ring.{name}: length {t.shape[0]} != {S}")
     if RING > 32:
-        raise ValueError("ring_assemble: RING must be <= 32 (one warp)")
-    out = torch.empty((S, RING), dtype=F32, device=dev)
+        raise ValueError("ring_assemble: RING must be <= 32")
+    if S * RING >= 2**31:
+        raise ValueError(f"ring_assemble: S * RING = {S * RING} >= 2^31")
+    # the kernel stores four words at a time: round the flat output up to
+    # a multiple of four (the last store's tail lands in the padding)
+    flat = torch.empty(-(-S * RING // 4) * 4, dtype=F32, device=dev)
     _cuda.launch(
         "ring_assemble_i32", old_ring.view(I32), rsrc, rslot, rval.view(I32),
-        keep, out.view(I32), S, RING,
+        keep, flat.view(I32), S, RING,
     )
     _cuda.COUNTS["ring_assemble"] += 1
-    return out
+    return flat[: S * RING].view(S, RING)
