@@ -29,14 +29,22 @@ verdict, printed only when every phase passed):
    shared memory up to CL=8192, in device memory above) at the widths the
    mappers use, in three occupancy regimes and on an adversarial tie
    case, with the launches of each form; the timed folds' longest read
-   and microseconds a row;
+   and microseconds a row; the pair count on adversarial keys (one cell,
+   runs of 32 and 33, all out of domain, sorted, K % 4 = 3, K = 0, an
+   unaligned view) and its device time at three block widths beside an
+   empty kernel and an empty cooperative launch with one grid barrier;
+   the LF-walk SA lookup on every row of the example index (intv 32 and
+   24);
 3. the 14 golden reads on the example index through ``BatchMapper``, on
-   the pooled engine and on the classic engine: every PAF line
-   byte-identical to ``tests/fixtures/golden_pafs.json``, with every
-   kernel of the path launched; a pooled eject tier, a narrow classic
-   remap ladder, and pooled tiers that chain to the classic final rung
-   each give the golden lines; so do the conf defaults' paths, each
-   shown to have run: the slot handoff (B=2), handoff with the tail-mode
+   the pooled engine and on the classic engine, each with the full SA and
+   with the 1/32 SA sample (the LF-walk kernel, in every engine of the
+   chain; noise_1, which never decides, runs once per engine: pooled with
+   the full SA, classic sampled): every PAF line byte-identical to
+   ``tests/fixtures/golden_pafs.json``, with every kernel of the path
+   launched; a pooled eject tier, a narrow classic remap ladder (one
+   read), and pooled tiers that chain to the classic final rung each give
+   the golden lines; so do the conf defaults' paths, each shown to have
+   run: the slot handoff (B=2, three reads), handoff with the tail-mode
    disarm, the drain chain and the bitonic merge levels (B=8), the drain
    by migration, and the classic entry's drain by restart;
 4. pooled at real size: a 4.7 Mb repeat-bearing genome, its index and
@@ -45,7 +53,13 @@ verdict, printed only when every phase passed):
    launches per kernel per step, peak device memory, the idle share of one
    profiled block); kernel inputs captured from live steps are re-checked
    against the plain versions bit for bit, and the fold is timed on the
-   captured step with the longest read; every read is yielded;
+   captured step with the longest read; every read is yielded; then the
+   LF-walk lookup on the genome's index (seeded rows at RT and B*R with
+   the ends, the primary row and the 64 longest walks, against the plain
+   version and the walk model from the full SA; its device time, byte and
+   chain bounds), and the first 256 timed reads again with the 1/32 SA
+   sample at B=256: lines equal to the full SA's, ms and launches per
+   step, the SA's and the index's device bytes, live lookups re-checked;
 5. classic at real size: the same genome and reads, ``pooled = False`` at
    the conf defaults (B=64, P=1024, C=1024, CE=1280, R=256, CL=1024, T=64
    and the default remap ladder), 8 warm-up + 256 timed reads, with the
@@ -89,6 +103,7 @@ SC_FULL = S_FULL + S_FULL // 4  # 122880
 RT_FULL = 24 * B_FULL  # 6144
 RING = 23
 N_POOLED, N_CLASSIC = 512, 256  # timed reads of phases 4 (and 6) and 5
+N_SAMPLED = 256  # phase 4's sampled-SA run: the first of its timed reads
 POOLED_KERNELS = ("flat_gather", "pair_counts", "ring_assemble",
                   "tracker_fold")
 CLASSIC_KERNELS = ("row_gather", "tracker_fold_rows")
@@ -122,9 +137,19 @@ KERNELS = {
     "sort_runs": dict(
         route="cuda", source="uncalled_tpu_torch/csrc/sortkern.cu",
         replaces="uncalled_tpu/mapping/pooled.py:379-397"),
+    # no Pallas kernel: the XLA while_loop of the JAX LF-walk
+    "sa_lookup": dict(
+        route="cuda", source="uncalled_tpu_torch/csrc/sa_lookup.cu",
+        replaces="uncalled_tpu/mapping/engine.py:338-383"),
 }
-STEMS = ("flat_gather", "row_gather", "sortkern", "stepkern",
-         "tracker_kernel")
+# the sampled-SA paths add the LF-walk lookup to each engine's kernels
+SAMPLED_POOLED = POOLED_KERNELS + ("sa_lookup",)
+SAMPLED_CLASSIC = CLASSIC_KERNELS + ("sa_lookup",)
+SA_INTV = 32
+# probe.cu holds measurement probes (an empty launch, a pointer chase), no
+# kernel of the mapper
+STEMS = ("flat_gather", "probe", "row_gather", "sa_lookup", "sortkern",
+         "stepkern", "tracker_kernel")
 
 
 def log(*a):
@@ -859,6 +884,11 @@ def phase_kernels(out, rate):
                  lambda: fg.pair_counts_plain(a, b, na, nb), lib_pairs,
                  nbytes=a.numel() * 8 + na * nb * 4,
                  shape=f"keys {a.numel()} -> [{na}, {nb}]")
+    for label, x, y in pair_cases(rng, dev, na, nb):
+        ok &= check(f"pair_counts[{label}, K={x.numel()}]",
+                    fg.pair_counts(x, y, na, nb),
+                    fg.pair_counts_plain(x, y, na, nb))
+    pair_floor(out, a, b, na, nb)
 
     # ring assembly
     old, rsrc, rslot, rval, keep = ring_case(rng, dev)
@@ -996,6 +1026,130 @@ def phase_kernels(out, rate):
                          rows_longest=int(rows_r.clamp(max=R).max()))
     ok &= phase_merge(out, rate, rng, dev)
     ok &= phase_folds(out, dev)
+    ok &= sa_lookup_example(out, dev)
+    return ok
+
+
+def pair_cases(rng, dev, na, nb, K=SC_FULL):
+    """The pair count's adversarial inputs (tests/test_torch_kernels.py
+    runs the same kinds against the Pallas kernel): one cell for every key,
+    runs of 32 and of 33 equal cells (a warp's width and one more), every
+    key out of the domain, the seeded keys sorted by (a, b) as the live
+    keys nearly are, K % 4 = 3, K = 0, and a view 4 bytes off 16-byte
+    alignment (the scalar path)."""
+    import torch
+
+    def t(x):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=np.int32)).to(
+            dev)
+
+    a = rng.integers(-2, na + 3, K)
+    b = rng.integers(-3, nb + 5, K)
+    cases = [("all equal", np.full(K, na - 1), np.full(K, nb - 1))]
+    for w in (32, 33):
+        cell = np.repeat(rng.integers(0, na * nb, K // w + 1), w)[:K]
+        bb = cell % nb
+        bb[::97] = nb  # a few dropped keys inside the runs
+        cases.append((f"runs of {w}", cell // nb, bb))
+    cases.append(("all out of domain",
+                  np.where(rng.random(K) < 0.5, -1, na), b))
+    order = np.lexsort((b, a))
+    cases.append(("sorted", a[order], b[order]))
+    cases.append(("K % 4 = 3", a[: K - 5], b[: K - 5]))
+    cases.append(("K = 0", a[:0], b[:0]))
+    out = [(label, t(x), t(y)) for label, x, y in cases]
+    ta, tb = t(a), t(b)
+    out.append(("unaligned view", ta[1:], tb[1:]))
+    return out
+
+
+def pair_floor(out, a, b, na, nb):
+    """Device ms of the pair count at 256, 512 and 1024 threads a block
+    (one block per SM at most), on the seeded and on sorted keys, beside
+    an empty kernel (1 x 32 threads, and the pair count's own grid) and an
+    empty cooperative launch of that grid, without and with one grid
+    barrier: the practical floor of a one-launch pair count."""
+    import torch
+
+    from uncalled_tpu_torch.ops import _cuda
+    from uncalled_tpu_torch.ops import flat_gather as fg
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    K = a.numel()
+
+    def blocks(T):  # csrc/flat_gather.cu pair_counts_i32's grid
+        return max(1, min(sms, -(-max(na * nb // 4 + 1, (K + 3) // 4) // T)))
+
+    order = torch.argsort(a.long() * (nb + 8) + b.long())
+    sa_, sb_ = a[order].contiguous(), b[order].contiguous()
+    keep = fg.PAIR_THREADS
+    widths = (256, 512, 1024)
+
+    def at(w, x, y):
+        fg.PAIR_THREADS = w
+        fg.pair_counts(x, y, na, nb)
+
+    def empty(nblk, threads, sync):
+        return lambda: _cuda.launch("probe_empty", nblk, threads, sync)
+
+    fns = [(lambda w=w: at(w, a, b), 20) for w in widths]
+    fns += [(lambda: at(keep, sa_, sb_), 20),
+            (empty(1, 32, 0), 20), (empty(blocks(keep), keep, 0), 20),
+            (empty(blocks(keep), keep, 2), 20),
+            (empty(blocks(keep), keep, 1), 20)]
+    try:
+        ms = device_ms(fns, tag="pair_counts_floor")
+    finally:
+        fg.PAIR_THREADS = keep
+    res = dict(
+        threads_ms=dict(zip(widths, ms[:3])), sorted_keys_ms=ms[3],
+        empty_kernel_ms=ms[4], empty_grid_ms=ms[5],
+        empty_cooperative_ms=ms[6], grid_barrier_ms=ms[7],
+        blocks=blocks(keep), threads=keep,
+        blocks_by_threads={w: blocks(w) for w in widths})
+    out["pair_counts_floor"] = res
+    if "pair_counts" in out["kernels"]:
+        out["kernels"]["pair_counts"]["floor_ms"] = ms[4]
+    log("[2] pair_counts device ms by threads a block, sorted keys, empty "
+        "kernel (1 x 32, the pair count's grid), empty cooperative launch "
+        "(the pair count's grid) without and with one grid barrier: "
+        + json.dumps(res))
+
+
+def sa_lookup_example(out, dev):
+    """The LF-walk kernel on every row of the example index (n = 20000,
+    walks up to 201 steps) against its plain version and the walk model
+    from the full SA; the 4.7 Mb genome's rows follow in phase 4."""
+    import torch
+
+    from uncalled_tpu_torch.index.bwa_compat import load_bwa_index
+    from uncalled_tpu_torch.mapping.engine import device_index
+    from uncalled_tpu_torch.mapping.thresholds import load_uncl
+    from uncalled_tpu_torch.ops import sa_lookup as sl
+    from uncalled_tpu_torch.poremodel import load_default
+
+    prefix = os.path.join(REPO, "tests", "fixtures", "example_index",
+                          "example_ref")
+    fmi = load_bwa_index(prefix)
+    th = load_uncl(prefix + ".uncl")
+    rows = torch.arange(fmi.n + 1, dtype=torch.int32, device=dev)
+    ok = True
+    # the default intv (a power of two: mask and shift) and one that is
+    # not (the kernel's general path: modulo and division)
+    for intv in (SA_INTV, 24):
+        idx = device_index(fmi, th, load_default(), device=dev,
+                           sampled_sa=True, sa_intv=intv)
+        got = sl.sa_lookup(idx, rows, intv)
+        ok &= check(f"sa_lookup[example index, intv {intv}, all "
+                    f"{fmi.n + 1} rows]", got,
+                    sl.sa_lookup_plain(idx, rows, intv))
+        steps, value = sl.walk_model(fmi.sa_full, intv)
+        model_ok = np.array_equal(got.cpu().numpy(), value)
+        log(f"[2] sa_lookup[example index, intv {intv}] against the walk "
+            f"model: {'equal' if model_ok else 'MISMATCH'} (longest walk "
+            f"{int(steps.max())}, rows past the primary row "
+            f"{int((value != fmi.sa_full).sum())})")
+        ok &= model_ok
     return ok
 
 
@@ -1225,18 +1379,18 @@ def live_fold_time(name, fn, rows_longest, rows_total, shape):
     return res
 
 
-def check(name, got, want) -> bool:
+def check(name, got, want, ph=2) -> bool:
     import torch
 
     torch.cuda.synchronize()
     eq = same_bits(got, want)
-    log(f"[2] {name}: {'bit-equal' if eq else 'MISMATCH'}")
+    log(f"[{ph}] {name}: {'bit-equal' if eq else 'MISMATCH'}")
     return eq
 
 
 def report(res, name, got, want, rate, kfn, pfn, lfn, nbytes, shape,
-           plain_reps=10, key=None, rows_longest=None) -> bool:
-    eq = check(key or name, got, want)
+           plain_reps=10, key=None, rows_longest=None, ph=2) -> bool:
+    eq = check(key or name, got, want, ph)
     fns = [(kfn, 20)] + [(f, r) for f, r in ((pfn, plain_reps), (lfn, 20))
                          if f is not None]
     ms, *rest = device_ms(fns, tag=name)
@@ -1254,7 +1408,7 @@ def report(res, name, got, want, rate, kfn, pfn, lfn, nbytes, shape,
                                 us_per_row=ms * 1e3 / max(rows_longest, 1))
         log(f"[2] {key or name}: longest read {rows_longest} rows, "
             f"{ms * 1e3 / max(rows_longest, 1):.4f} us a row")
-    log(f"[2] {name} {shape}: device ms per call: kernel {ms:.4f}, plain "
+    log(f"[{ph}] {name} {shape}: device ms per call: kernel {ms:.4f}, plain "
         f"{plain_ms if plain_ms is None else round(plain_ms, 4)}, library "
         f"{lib_ms if lib_ms is None else round(lib_ms, 4)}, bound "
         f"{bound_ms:.4f} ({nbytes} B); kernel call incl. host "
@@ -1292,7 +1446,6 @@ def phase_golden(out):
     from uncalled_tpu_torch.index.bwa_compat import load_bwa_index
     from uncalled_tpu_torch.mapping.batch import BatchMapper
     from uncalled_tpu_torch.mapping.thresholds import load_uncl
-    from uncalled_tpu_torch.ops import _cuda
     from uncalled_tpu_torch.poremodel import load_default
 
     fx = os.path.join(REPO, "tests", "fixtures")
@@ -1304,23 +1457,23 @@ def phase_golden(out):
     sigs = np.load(os.path.join(fx, "golden_reads.npz"), allow_pickle=True)
     bm = BatchMapper(fmi, load_default(), th, _conf(4, 512, 64),
                      sort_mode="flat")
-    reads = [_Read(r, sigs[r]) for r in golden]
-    _cuda.reset_counts()
-    t0 = time.time()
-    got = {p.rd_name: p.to_line() for p in bm.map_reads(reads)}
-    dt = time.time() - t0
-    counts = dict(_cuda.COUNTS)
-    bad = [r for r in golden if got.get(r) != golden[r]]
-    log(f"[3] golden: {len(golden) - len(bad)}/{len(golden)} lines "
-        f"byte-identical in {dt:.2f} s; launches {counts}")
-    for r in bad:
-        log(f"[3]   {r}: got {got.get(r)!r}")
-    out["golden_launches"] = counts
-    ok = not bad and all(counts[k] > 0 for k in POOLED_KERNELS)
+    ok, info = golden_run("golden", bm, list(golden), golden, sigs,
+                          POOLED_KERNELS)
+    out["golden_launches"] = info["launches"]
+    # the 13 reads that decide with the 1/32 SA sample: the LF-walk kernel
+    # looks up every seed row (noise_1, which never decides, runs once per
+    # engine: here with the full SA, on the classic engine sampled)
+    bm = BatchMapper(fmi, load_default(), th, _conf(4, 512, 64),
+                     sort_mode="flat", sampled_sa=True, sa_intv=SA_INTV)
+    s_ok, out["golden_sampled"] = golden_run(
+        "golden sampled SA", bm, [r for r in golden if r != "noise_1"],
+        golden, sigs, SAMPLED_POOLED)
+    ok &= s_ok and sampled_chain(bm)
 
     # a pool too small for the read: it ejects to the pooled wide tier,
     # which runs on the card and must still give the golden line
     rid = "sim_0000_Escherichia_coli_3854_+"
+    t0 = time.time()
     conf = _conf(2, 512, 64)
     conf.engine.remap_ladder = ((1024, 2, 128, 256, 0),)
     bm = BatchMapper(fmi, load_default(), th, conf, S=128, SC=160,
@@ -1333,10 +1486,42 @@ def phase_golden(out):
     shapes = [(m.eng.params.B, m.eng.params.S, m.eng.params.CL) for m in tiers]
     log(f"[3] eject tier: ejects {[m.n_ejected for m in tiers]}, tier shapes "
         f"(B, S, CL) {shapes}, golden line "
-        f"{'identical' if tier_ok else 'MISMATCH'}")
+        f"{'identical' if tier_ok else 'MISMATCH'} ({time.time() - t0:.2f} s)")
     classic_ok = phase_golden_classic(out, fmi, th, golden, sigs)
     defaults_ok = phase_golden_defaults(out, fmi, th, golden, sigs)
     return ok and tier_ok and classic_ok and defaults_ok
+
+
+def golden_run(tag, bm, rids, golden, sigs, kernels):
+    """Map golden reads ``rids`` with ``bm``, the launch counts set to 0
+    just before and read just after: ok when every line is the golden one
+    and each of ``kernels`` launched."""
+    from uncalled_tpu_torch.ops import _cuda
+
+    reads = [_Read(r, sigs[r]) for r in rids]
+    _cuda.reset_counts()
+    t0 = time.time()
+    got = {p.rd_name: p.to_line() for p in bm.map_reads(reads)}
+    dt = time.time() - t0
+    counts = dict(_cuda.COUNTS)
+    bad = [r for r in rids if got.get(r) != golden[r]]
+    log(f"[3] {tag}: {len(rids) - len(bad)}/{len(rids)} lines "
+        f"byte-identical in {dt:.2f} s; launches {counts}")
+    for r in bad:
+        log(f"[3]   {r}: got {got.get(r)!r}")
+    ok = not bad and all(counts[k] > 0 for k in kernels)
+    return ok, dict(seconds=dt, reads=len(rids), bad=bad, launches=counts,
+                    ok=ok)
+
+
+def sampled_chain(bm) -> bool:
+    """Every engine of the mapper's chain keeps the 1/32 SA sample on the
+    card and no full SA."""
+    ok = all(m.eng.params.sampled_sa and "sa_samp" in m.eng.idx
+             and "sa" not in m.eng.idx for m in _chain(bm))
+    log(f"[3]   sampled SA in every engine of the chain "
+        f"({len(_chain(bm))}): {ok}")
+    return ok
 
 
 def _chain(bm):
@@ -1421,8 +1606,10 @@ def phase_golden_defaults(out, fmi, th, golden, sigs):
 
     ok = True
     allr = list(golden)
+    sims = [r for r in allr if r.startswith("sim_")]
     # Conf() at B=2: too narrow to drain; decided slots switch on the card
-    ok &= run("handoff B=2", conf_of(2), allr,
+    # (three reads, more than the slots: one handoff)
+    ok &= run("handoff B=2", conf_of(2), sims[:3],
               lambda bm, i, c: (i["handoff"] and i["n_handoff"] > 0
                                 and i["sort_mode"] == "bitonic"
                                 and c["sort_runs"] > 0
@@ -1473,33 +1660,33 @@ def phase_golden_classic(out, fmi, th, golden, sigs):
     """The classic engine and its remap ladder on the golden reads."""
     from uncalled_tpu_torch.mapping.batch import BatchMapper
     from uncalled_tpu_torch.mapping.engine import MapEngine
-    from uncalled_tpu_torch.ops import _cuda
     from uncalled_tpu_torch.poremodel import load_default
 
     model = load_default()
-    # all 14 reads at B=4 (more reads than slots) at the conf defaults
+    # the 13 reads that decide at B=4 (more reads than slots) at the conf
+    # defaults; noise_1, which never decides (2250 events), runs in the
+    # sampled run below
     bm = BatchMapper(fmi, model, th, _conf(4, 512, 64, pooled=False))
-    reads = [_Read(r, sigs[r]) for r in golden]
-    _cuda.reset_counts()
-    t0 = time.time()
-    got = {p.rd_name: p.to_line() for p in bm.map_reads(reads)}
-    dt = time.time() - t0
-    counts = dict(_cuda.COUNTS)
-    bad = [r for r in golden if got.get(r) != golden[r]]
+    ok, info = golden_run("classic golden", bm,
+                          [r for r in golden if r != "noise_1"], golden, sigs,
+                          CLASSIC_KERNELS)
     rungs = _rungs(bm)
-    log(f"[3] classic golden: {len(golden) - len(bad)}/{len(golden)} lines "
-        f"byte-identical in {dt:.2f} s; launches {counts}; rungs {rungs}")
-    for r in bad:
-        log(f"[3]   {r}: got {got.get(r)!r}")
-    out["golden_classic"] = dict(seconds=dt, launches=counts, rungs=rungs)
-    ok = (not bad and isinstance(bm.eng, MapEngine)
-          and all(counts[k] > 0 for k in CLASSIC_KERNELS))
+    log(f"[3] classic golden rungs {rungs}")
+    out["golden_classic"] = dict(info, rungs=rungs)
+    ok &= isinstance(bm.eng, MapEngine)
+    # all 14 reads with the 1/32 SA sample, every rung sampled
+    bm = BatchMapper(fmi, model, th, _conf(4, 512, 64, pooled=False),
+                     sampled_sa=True, sa_intv=SA_INTV)
+    s_ok, info = golden_run("classic golden sampled SA", bm, list(golden),
+                            golden, sigs, SAMPLED_CLASSIC)
+    out["golden_classic_sampled"] = dict(info, rungs=_rungs(bm))
+    ok &= s_ok and isinstance(bm.eng, MapEngine) and sampled_chain(bm)
 
     # narrow budgets and a narrow two-rung ladder (tests/test_engine.py
-    # test_remap_ladder_restores_parity): every read climbs it
-    fast = ["sim_0000_Escherichia_coli_3854_+",
-            "sim_0003_Escherichia_coli_6188_-",
-            "sim_0006_Escherichia_coli_5000_+"]
+    # test_remap_ladder_restores_parity); one read shows it, climbing both
+    # rungs
+    fast = ["sim_0000_Escherichia_coli_3854_+"]
+    t0 = time.time()
     conf = _conf(4, 512, 64, pooled=False)
     conf.engine.remap_ladder = ((64, 4, 8, 16, 0), (1024, 4, 48, 128, 0))
     bm = BatchMapper(fmi, model, th, conf, P=32, C=32, R=4, CL=8)
@@ -1511,12 +1698,14 @@ def phase_golden_classic(out, fmi, th, golden, sigs):
                  and [r["rung"] for r in rungs] == [0, 1, 2]
                  and rungs[-1]["P"] == 1024)
     log(f"[3] narrow ladder: rungs {rungs}, golden lines "
-        f"{'identical' if ladder_ok else 'MISMATCH'}")
+        f"{'identical' if ladder_ok else 'MISMATCH'} ({time.time() - t0:.2f}"
+        " s)")
 
     # pooled tiers too small as well: the read goes on to the classic
     # final rung (tests/test_pooled.py
     # test_pooled_exhaustion_chains_to_classic_final_rung)
     rid = fast[0]
+    t0 = time.time()
     conf = _conf(2, 512, 64)
     conf.engine.pool_wide = (96, 256)
     conf.engine.pool_max = (112, 256)
@@ -1529,7 +1718,8 @@ def phase_golden_classic(out, fmi, th, golden, sigs):
                 and [r["ejected"] for r in rungs] == [1, 1, 1, 0]
                 and isinstance(bm.tiers()[-1].eng, MapEngine))
     log(f"[3] pooled tiers -> classic final rung: rungs {rungs}, golden line "
-        f"{'identical' if final_ok else 'MISMATCH'}")
+        f"{'identical' if final_ok else 'MISMATCH'} ({time.time() - t0:.2f} "
+        "s)")
     return ok and ladder_ok and final_ok
 
 
@@ -1656,6 +1846,16 @@ def phase_real(out, rate):
             log(f"[4] captured {name}#{i}: "
                 f"{'bit-equal' if eq else 'MISMATCH'}")
         ok &= bool(calls)
+    # the pair count on the live step's keys (most of them out of domain)
+    if captured["pair_counts"]:
+        pa_ = captured["pair_counts"][-1]
+        ms, = device_ms([(lambda: fg.pair_counts(*pa_), 20)],
+                        tag="pair_counts_live")
+        x, y, na_, nb_ = pa_
+        live = dict(ms=ms, keys=x.numel(), in_domain=int(
+            ((x >= 0) & (x < na_) & (y >= 0) & (y < nb_)).sum()))
+        out["real_pair_counts"] = live
+        log("[4] pair_counts on captured step keys: " + json.dumps(live))
     # the step's nine column gathers, the unified record table among them
     ok &= any(len(c[0]) == 5 for c, _, _ in captured["flat_gather"]
               if isinstance(c[0], list))
@@ -1715,6 +1915,208 @@ def phase_real(out, rate):
     for k in POOLED_KERNELS:
         if k in out["kernels"]:
             out["kernels"][k]["launches"] = counts[k]
+    dev = torch.device("cuda")
+    ok &= sa_lookup_real(out, rate, fmi, th, model, dev)
+    ok &= sampled_real(out, fmi, th, model, conf, bm.eng.idx,
+                       timed[:N_SAMPLED], dev)
+    return ok
+
+
+def load_latency_ns(dev, n_words=7 << 18, steps=(20000, 60000)):
+    """Nanoseconds of one dependent load: one thread follows a random
+    single cycle through a 7 MB int32 table (the size of the 4.7 Mb
+    genome's occ_rows; in L2 once warm), at two chain lengths, so the
+    launch cancels out of the difference."""
+    import torch
+
+    from uncalled_tpu_torch.ops import _cuda
+
+    rng = np.random.default_rng(7)
+    perm = rng.permutation(n_words)
+    nxt = np.empty(n_words, np.int32)
+    nxt[perm] = np.roll(perm, -1)
+    nxt_t = torch.from_numpy(nxt).to(dev)
+    res = torch.empty(1, dtype=torch.int32, device=dev)
+    fns = [(lambda k=k: _cuda.launch("probe_chase", nxt_t, k, res), 3)
+           for k in steps]
+    ms = device_ms(fns, tag="load_latency")
+    return (ms[1] - ms[0]) * 1e6 / (steps[1] - steps[0])
+
+
+def sa_lookup_real(out, rate, fmi, th, model, dev):
+    """The LF-walk kernel on the 4.7 Mb genome's index: seeded rows at the
+    pooled step's RT = 6144 (the headline) and the classic step's B*R =
+    16384, each with rows 0, n, primary, primary +- 1 and the 64 rows of
+    the longest walks (found with numpy from sa_full), against the plain
+    version and against the walk model from the full SA; then its device
+    time, its byte bound (the distinct bucket rows and samples the walks
+    read) and its chain bound (longest walk x a measured dependent-load
+    latency), and the full SA's index_select as the library call."""
+    import torch
+
+    from uncalled_tpu_torch.mapping.engine import device_index
+    from uncalled_tpu_torch.ops import sa_lookup as sl
+
+    t0 = time.time()
+    idx = device_index(fmi, th, model, device=dev, sampled_sa=True,
+                       sa_intv=SA_INTV)
+    n, primary = fmi.n, fmi.primary
+    steps, value = sl.walk_model(fmi.sa_full, SA_INTV)
+    t1 = time.time()
+    crossed_all = int((value != fmi.sa_full).sum())
+    walks = dict(n=n, primary=primary, mean=float(steps.mean()),
+                 p99=float(np.percentile(steps, 99)),
+                 longest=int(steps.max()), rows_past_primary=crossed_all,
+                 model_s=t1 - t0)
+    log("[4] LF-walk lengths over every row of the 4.7 Mb index: "
+        + json.dumps(walks))
+    out["sa_walks"] = walks
+    longest = np.argsort(-steps, kind="stable")[:64]
+    edges = np.array([0, n, primary, primary - 1, primary + 1], np.int64)
+    rng = np.random.default_rng(20261018)
+    sa_full_t = torch.from_numpy(np.asarray(fmi.sa_full, np.int32)).to(dev)
+    ok = True
+    for label, size in (("RT", RT_FULL), ("B*R", 64 * 256)):
+        rows = rng.integers(0, n + 1, size)
+        rows[: 69] = np.concatenate([edges, longest])
+        rows_t = torch.from_numpy(rows.astype(np.int32)).to(dev)
+        got = sl.sa_lookup(idx, rows_t, SA_INTV)
+        eq = check(f"sa_lookup[{label} = {size} rows, 4.7 Mb index]", got,
+                   sl.sa_lookup_plain(idx, rows_t, SA_INTV), ph=4)
+        g = got.cpu().numpy().astype(np.int64)
+        model_ok = np.array_equal(g, value[rows])
+        crossed = value[rows] != fmi.sa_full[rows]
+        full_ok = np.array_equal(g[~crossed], fmi.sa_full[rows][~crossed])
+        log(f"[4] sa_lookup[{label}]: against the walk model "
+            f"{'equal' if model_ok else 'MISMATCH'}; equal to sa_full on "
+            f"{int((~crossed).sum())} rows, sa_full + n + 1 on "
+            f"{int(crossed.sum())} (walks past the primary row, as the JAX "
+            f"function gives them); longest walk here "
+            f"{int(steps[rows].max())}")
+        ok &= eq and model_ok and full_ok
+        if label != "RT":
+            continue
+        # bytes: each input once (the rows, the distinct bucket rows and
+        # samples the walks read, L2) and the output once.  The walk from a
+        # row of SA value s and k steps loads the bucket rows of SA values
+        # s - k + 1 ... s and ends on the row of s - k (row 0 below 0).
+        sv = np.asarray(fmi.sa_full, np.int64)[rows]
+        walk = steps[rows].astype(np.int64)
+        inv = np.empty(n + 1, np.int64)
+        inv[np.asarray(fmi.sa_full, np.int64)] = np.arange(n + 1)
+        pos = (np.repeat(sv - walk + 1, walk) + np.arange(int(walk.sum()))
+               - np.repeat(np.cumsum(walk) - walk, walk))
+        j = inv[pos]
+        buckets = np.unique((j - (j > primary)) >> 5).size
+        end_rows = np.where(sv - walk >= 0, inv[np.maximum(sv - walk, 0)], 0)
+        ends = np.unique(end_rows // SA_INTV).size
+        nbytes = size * 8 + buckets * 24 + ends * 4 + 20
+        lat = load_latency_ns(dev)
+        chain_ms = int(walk.max()) * lat * 1e-6
+        rows_l = rows_t.long()
+
+        def lib():
+            return sa_full_t.index_select(0, rows_l)
+
+        # the plain walk (~14000 launches a call) is traced on its own:
+        # in one session with the kernel the profiler drops events
+        ok &= report(out["kernels"], "sa_lookup", got,
+                     sl.sa_lookup_plain(idx, rows_t, SA_INTV), rate,
+                     lambda: sl.sa_lookup(idx, rows_t, SA_INTV), None, lib,
+                     nbytes=nbytes, ph=4,
+                     shape=f"{size} rows, n={n}, intv={SA_INTV}")
+        ent = out["kernels"]["sa_lookup"]
+        ent["plain_ms"], = device_ms(
+            [(lambda: sl.sa_lookup_plain(idx, rows_t, SA_INTV), 1)],
+            tag="sa_lookup_plain")
+        ent.update(
+            chain_bound_ms=chain_ms, load_latency_ns=lat,
+            walk_longest=int(walk.max()), walk_mean=float(walk.mean()),
+            walk_visits=int(walk.sum()), distinct_buckets=buckets,
+            visit_bound_ms=size * (float(walk.mean()) + 1) * 24 / rate * 1e3)
+        log("[4] sa_lookup bounds: " + json.dumps(
+            {k: ent[k] for k in ("ms", "bound_ms", "visit_bound_ms",
+                                 "chain_bound_ms", "load_latency_ns",
+                                 "walk_longest", "walk_mean",
+                                 "distinct_buckets", "library_ms")}))
+    return ok
+
+
+def sampled_real(out, fmi, th, model, conf, full_idx, reads, dev):
+    """The pooled mapper at B=256 with the 1/32 SA sample on the first
+    N_SAMPLED of phase 4's timed reads: every line equal to phase 4's, the
+    LF-walk kernel launched (counts set to 0 just before the run, read just
+    after), ms and launches per step, the SA's and the whole index's device
+    bytes against the full SA's, and live lookup inputs re-checked against
+    the plain version."""
+    import torch
+
+    import uncalled_tpu_torch.mapping.pooled as pooled
+    from uncalled_tpu_torch.mapping.batch import BatchMapper
+    from uncalled_tpu_torch.ops import _cuda
+    from uncalled_tpu_torch.ops import sa_lookup as sl
+
+    lines4 = out["real_lines"]
+    bm = BatchMapper(fmi, model, th, conf, device=dev, sort_mode="flat",
+                     sampled_sa=True, sa_intv=SA_INTV)
+    captured = []
+    orig = pooled.sa_lookup
+
+    def cap(idx, rows, intv):
+        if len(captured) < 3:
+            captured.append((rows.clone(), intv))
+        return orig(idx, rows, intv)
+
+    pooled.sa_lookup = cap
+    torch.cuda.synchronize()
+    _cuda.reset_counts()
+    t0 = time.time()
+    try:
+        pafs = list(bm.map_reads(reads))
+        torch.cuda.synchronize()
+    finally:
+        pooled.sa_lookup = orig
+    dt = time.time() - t0
+    counts = dict(_cuda.COUNTS)
+    steps = sum(m.disp_events // m.eng.params.B for m in bm.tiers())
+    differ = [pf.rd_name for pf in pafs
+              if lines4.get(pf.rd_name) != pf.to_line()]
+
+    def nbytes(d):
+        return sum(v.numel() * v.element_size() for v in d.values()
+                   if isinstance(v, torch.Tensor))
+
+    idx = bm.eng.idx
+    samp = idx["sa_samp"].numel() * 4
+    full = full_idx["sa"].numel() * 4
+    res = dict(
+        reads=len(reads), yielded=len(pafs),
+        lines_equal_phase4=len(pafs) - len(differ), seconds=dt,
+        reads_per_s=len(reads) / dt, steps=steps,
+        ms_per_step=dt * 1e3 / max(steps, 1), launches=counts,
+        launches_per_step={k: v / max(steps, 1) for k, v in counts.items()},
+        sa_bytes=samp, sa_bytes_full=full, sa_ratio=samp / full,
+        index_bytes=nbytes(idx), index_bytes_full=nbytes(full_idx),
+        ejects_per_tier=[m.n_ejected for m in bm.tiers()])
+    out["sampled"] = res
+    log("[4] sampled SA, B=256: " + json.dumps(res))
+    for r in differ[:5]:
+        log(f"[4]   {r}: {lines4.get(r)!r} (phase 4) vs the sampled line")
+    ok = (len(pafs) == len(reads) and not differ and counts["sa_lookup"] > 0
+          and all(counts[k] > 0 for k in SAMPLED_POOLED)
+          and "sa" not in idx
+          and idx["sa_samp"].numel() == -(-(fmi.n + 1) // SA_INTV))
+    for i, (rows, intv) in enumerate(captured):
+        eq = same_bits(sl.sa_lookup(idx, rows, intv),
+                       sl.sa_lookup_plain(idx, rows, intv))
+        ok &= eq
+        log(f"[4] captured sa_lookup#{i} ({rows.numel()} rows): "
+            f"{'bit-equal' if eq else 'MISMATCH'}")
+    ok &= bool(captured)
+    out["sampled_profile"] = profile_block(bm, reads)
+    log("[4] sampled SA profile: " + json.dumps(out["sampled_profile"]))
+    if "sa_lookup" in out["kernels"]:
+        out["kernels"]["sa_lookup"]["launches"] = counts["sa_lookup"]
     return ok
 
 
@@ -2050,6 +2452,7 @@ def profile_block(bm, reads):
         gather_cols_ms_per_step=family_ms("gather_cols_kernel"),
         cat_ms_per_step=family_ms("CatArrayBatchedCopy"),
         tracker_fold_ms_per_step=family_ms("tracker_fold_kernel"),
+        sa_lookup_ms_per_step=family_ms("sa_lookup_kernel"),
     )
 
 

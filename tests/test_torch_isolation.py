@@ -127,7 +127,8 @@ def test_chip_smoke_refuses_without_card_or_checkout(tmp_path, alone):
 
 def test_unported_options_raise():
     """The conf defaults construct (slot handoff, drain chain, the bitonic
-    sort); only sampled_sa and the device event detector raise."""
+    sort), and so do both engines in sampled-SA mode (the 1/32 sample on
+    the device, no full SA); only the device event detector raises."""
     from uncalled_tpu_torch.config import Conf
     from uncalled_tpu_torch.index.bwa_compat import load_bwa_index
     from uncalled_tpu_torch.mapping.batch import BatchMapper
@@ -147,10 +148,11 @@ def test_unported_options_raise():
     for over in ({"sort_mode": "bitonic"}, {"handoff": True}):
         eng = PooledEngine(fmi, model, th, conf, device="cpu", B=4, **over)
         assert all(getattr(eng.params, k) == v for k, v in over.items())
-    with pytest.raises(NotImplementedError):
-        PooledEngine(fmi, model, th, conf, device="cpu", B=4, sampled_sa=True)
-    with pytest.raises(NotImplementedError):
-        MapEngine(fmi, model, th, conf, device="cpu", B=4, sampled_sa=True)
+    for cls in (PooledEngine, MapEngine):
+        eng = cls(fmi, model, th, conf, device="cpu", B=4, sampled_sa=True)
+        assert eng.params.sampled_sa and eng.params.sa_intv == 32
+        assert "sa_samp" in eng.idx and "sa" not in eng.idx
+        assert eng.idx["sa_samp"].shape == ((fmi.n + 32) // 32,)
     conf.engine.device_dsp = True
     with pytest.raises(NotImplementedError, match="device_dsp"):
         BatchMapper(fmi, model, th, conf, device="cpu")

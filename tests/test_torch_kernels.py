@@ -65,8 +65,35 @@ def test_flat_gather_plain_matches_jax(monkeypatch, n, f, k, dt):
                 TG.flat_gather(_t(tbl[:, 0]), _t(idx)))
 
 
-@pytest.mark.parametrize("k,na,nb", [(5000, 17, 1024), (4096, 256, 1024)])
-def test_pair_counts_plain_matches_jax(monkeypatch, k, na, nb):
+def _pair_keys(case, k, na, nb):
+    """Seeded keys, or the adversarial cases chip_smoke.py also runs on the
+    card: one cell for every key, runs of 32 and of 33 equal cells (a warp's
+    width and one more), every key out of the domain."""
+    rng = np.random.default_rng(k + na)
+    a = rng.integers(-2, na + 3, (k,)).astype(np.int32)  # out of domain too
+    b = rng.integers(-3, nb + 6, (k,)).astype(np.int32)
+    if case == "all equal":
+        a[:], b[:] = na - 1, nb - 1
+    elif case.startswith("runs of"):
+        w = int(case.split()[-1])
+        cell = np.repeat(rng.integers(0, na * nb, k // w + 1), w)[:k]
+        a, b = (cell // nb).astype(np.int32), (cell % nb).astype(np.int32)
+        b[::97] = nb  # a few dropped keys inside the runs
+    elif case == "all out of domain":
+        a = np.where(rng.random(k) < 0.5, -1, na).astype(np.int32)
+    return a, b
+
+
+@pytest.mark.parametrize("case,k,na,nb", [
+    # the seeded cases keep the ids they had before the adversarial ones
+    pytest.param("seeded", 5000, 17, 1024, id="5000-17-1024"),
+    pytest.param("seeded", 4096, 256, 1024, id="4096-256-1024"),
+    ("all equal", 4096, 256, 1024), ("runs of 32", 4096, 256, 1024),
+    ("runs of 33", 4096, 256, 1024), ("all out of domain", 4096, 256, 1024),
+    ("seeded", 4093, 256, 1024),  # K not a multiple of 4
+    ("seeded", 0, 256, 1024),  # no keys: all zeros
+])
+def test_pair_counts_plain_matches_jax(monkeypatch, case, k, na, nb):
     import jax.numpy as jnp
 
     from uncalled_tpu.ops import flat_gather as FG
@@ -74,13 +101,53 @@ def test_pair_counts_plain_matches_jax(monkeypatch, k, na, nb):
     from uncalled_tpu_torch.ops import flat_gather as TG
 
     monkeypatch.setattr(FG, "_INTERPRET", True)
-    rng = np.random.default_rng(k + na)
-    a = rng.integers(-2, na + 3, (k,)).astype(np.int32)  # out of domain too
-    b = rng.integers(-3, nb + 6, (k,)).astype(np.int32)
+    a, b = _pair_keys(case, k, na, nb)
     got = TG.pair_counts(_t(a), _t(b), na, nb)
+    assert int(got.sum()) == int(((a >= 0) & (a < na) & (b >= 0)
+                                  & (b < nb)).sum())
     for force in (True, False):
         _eq(FG.pair_counts(jnp.asarray(a), jnp.asarray(b), na, nb,
                            force=force), got)
+
+
+def test_pair_counts_launch_off_the_cpu(monkeypatch):
+    """Off the CPU the wrapper makes one launch and no fill: it hands the
+    kernel an uninitialised [na, nb] output (the kernel zeroes it) and
+    counts one launch; bad dtypes, shapes and domains raise."""
+    from uncalled_tpu_torch.ops import _cuda
+    from uncalled_tpu_torch.ops import flat_gather as fg
+
+    seen = []
+
+    def fake_launch(name, *args):
+        seen.append((name, args[0].shape, args[2:6], args[6].shape))
+
+    def refuse(*a, **k):
+        raise AssertionError("the plain version or a fill ran off the CPU")
+
+    monkeypatch.setattr(_cuda, "launch", fake_launch)
+    monkeypatch.setattr(_cuda, "COUNTS", dict.fromkeys(_cuda.COUNTS, 0))
+    monkeypatch.setattr(fg, "pair_counts_plain", refuse)
+    monkeypatch.setattr(fg.torch, "zeros", refuse)
+
+    def meta(*shape, dt=torch.int32):
+        return torch.empty(shape, dtype=dt, device="meta")
+
+    out = fg.pair_counts(meta(122880), meta(122880), 256, 1024)
+    assert out.shape == (256, 1024) and out.dtype == torch.int32
+    assert seen == [("pair_counts_i32", (122880,),
+                     (122880, 256, 1024, fg.PAIR_THREADS), (256, 1024))]
+    assert _cuda.COUNTS == dict(dict.fromkeys(_cuda.COUNTS, 0),
+                                pair_counts=1)
+    for a, b, na, nb in (
+        (meta(8, dt=torch.int64), meta(8), 4, 4),  # dtype
+        (meta(8), meta(7), 4, 4),  # shapes differ
+        (meta(2, 4), meta(2, 4), 4, 4),  # not flat
+        (meta(8), meta(8), 2**16, 2**15),  # counters past int32
+    ):
+        with pytest.raises((TypeError, ValueError)):
+            fg.pair_counts(a, b, na, nb)
+    assert _cuda.COUNTS["pair_counts"] == 1
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])

@@ -106,6 +106,11 @@ class BatchMapper:
         self._dsp_pool = None
         self._next_mapper = None
         self._over = dict(over)
+        # the SA mode reaches every engine built below this one (eject
+        # tiers, drains, ladder rungs), so a sampled-SA mapper keeps no
+        # full SA on the device anywhere
+        p = self.eng.params
+        self._sa = dict(sampled_sa=p.sampled_sa, sa_intv=p.sa_intv)
         self._drain_mapper = None
         self.ovf_why: dict = {}  # read id -> overflow bits at harvest
         self.demand: dict = {}  # read id -> (flags, valid, paths, rows, cl)
@@ -161,6 +166,7 @@ class BatchMapper:
                         B=Bw, S=Bw * slots, SC=SCw,
                         CL=CLw, R=max(1024, self.eng.params.R), FS=512,
                         RE=2048, RT=max(8192, self.eng.params.RT),
+                        **self._sa,
                     ),
                 )
                 self._next_mapper.T = min(2 * self.T, 128)
@@ -170,6 +176,7 @@ class BatchMapper:
                 self.fmi, self.model, self.threshes, self.conf,
                 emit_timing=self.emit_timing, device=self.eng.device,
                 _rung=self._rung + 1, B=B, P=P, C=P, R=R, CL=CL, CE=CE,
+                **self._sa,
             )
         return self._next_mapper
 
@@ -196,13 +203,14 @@ class BatchMapper:
                         SC=min(5 * Bd * slots,
                                max(Bd * slots + Bd * slots // 4, pp.SC)),
                         CL=pp.CL, R=pp.R, FS=pp.FS, RE=pp.RE, RT=pp.RT,
+                        **self._sa,
                     ),
                 )
             else:
                 self._drain_mapper = BatchMapper(
                     self.fmi, self.model, self.threshes, self.conf,
                     emit_timing=self.emit_timing, device=self.eng.device,
-                    _rung=self._rung, **{**self._over, "B": Bd},
+                    _rung=self._rung, **{**self._over, **self._sa, "B": Bd},
                 )
             self._drain_mapper.T = min(2 * self.T, 128)
         return self._drain_mapper

@@ -9,8 +9,9 @@ classic engine ``MapEngine`` advances B reads through one event per step
 with fixed per-read budgets ([B, P] paths, C candidates, R seed rows, a
 [B, CL] cluster table): it is the entry engine of ``BatchMapper`` with
 ``conf.engine.pooled = False`` and every rung of the remap ladder.  On the
-card its gathers run on the ``row_gather`` kernel and its seed-row fold on
-``tracker_fold_rows``; the step does no host synchronisation.  Every
+card its gathers run on the ``row_gather`` kernel, its seed-row fold on
+``tracker_fold_rows`` and, with ``sampled_sa``, its SA lookup on
+``sa_lookup``; the step does no host synchronisation.  Every
 function is bit-exact to its JAX counterpart (tests/test_torch_engine.py,
 tests/test_torch_classic_step.py).
 
@@ -32,6 +33,7 @@ from ..convert import index_from_numpy
 from ..device import resolve
 from ..kmer import KMER_COUNT
 from ..ops.mxu_gather import row_gather, row_gather_cols, shared_gather
+from ..ops.sa_lookup import sa_lookup
 
 I32, F32, F64 = torch.int32, torch.float32, torch.float64
 INT32_MAX = 2**31 - 1
@@ -46,10 +48,12 @@ def f32_const(x: float) -> float:
     return float(np.float32(x))
 
 
-def index_arrays(fmi, threshes, model) -> dict:
+def index_arrays(fmi, threshes, model, sampled_sa=False, sa_intv=32) -> dict:
     """The device index tables as numpy: interleaved occ bucket rows
     ``[ckpt_A, ckpt_C, ckpt_G, ckpt_T, word0, word1]`` per 32-base block,
-    the full SA, k-mer ranges, L2, thresholds and the pore-model tables."""
+    the full SA (``"sa"``) or, with ``sampled_sa``, its every
+    ``sa_intv``-th row (``"sa_samp"``, looked up by LF-walk), k-mer ranges,
+    L2, thresholds and the pore-model tables."""
     nb = (fmi.n + 31) // 32
     words = np.zeros(2 * nb, dtype=np.uint32)
     words[: len(fmi.bwt_words)] = fmi.bwt_words
@@ -57,9 +61,14 @@ def index_arrays(fmi, threshes, model) -> dict:
     occ_rows[:, :4] = fmi.ckpt[:nb]
     occ_rows[:, 4] = words[0::2].view(np.int32)
     occ_rows[:, 5] = words[1::2].view(np.int32)
+    if sampled_sa:
+        sa_arrs = {"sa_samp": np.asarray(fmi.sa_full[::sa_intv],
+                                         dtype=np.int32)}
+    else:
+        sa_arrs = {"sa": np.asarray(fmi.sa_full, dtype=np.int32)}
     return {
         "occ_rows": occ_rows,
-        "sa": np.asarray(fmi.sa_full, dtype=np.int32),
+        **sa_arrs,
         "kmer_st": np.asarray(fmi.kmer_ranges[:, 0], dtype=np.int32),
         "kmer_en": np.asarray(fmi.kmer_ranges[:, 1], dtype=np.int32),
         "kmer_rng2": np.asarray(fmi.kmer_ranges[:, :2], dtype=np.int32),
@@ -76,13 +85,12 @@ def index_arrays(fmi, threshes, model) -> dict:
 def device_index(fmi, threshes, model, device=None, sampled_sa=False,
                  sa_intv=32):
     """Index tables for one index + model + threshold preset, on ``device``
-    (default: the CUDA card)."""
-    if sampled_sa:
-        raise NotImplementedError(
-            "sampled_sa (the LF-walk SA lookup) is not ported yet"
-        )
+    (default: the CUDA card).  With ``sampled_sa`` the full int32 SA stays
+    on the host and the device keeps a 1/``sa_intv`` row sample; the steps
+    look SA rows up by LF-walk (``ops.sa_lookup``)."""
     return index_from_numpy(
-        index_arrays(fmi, threshes, model), device=resolve(device)
+        index_arrays(fmi, threshes, model, sampled_sa, sa_intv),
+        device=resolve(device),
     )
 
 
@@ -733,8 +741,10 @@ def _event_step(idx, p: EngineParams, st, ev, ev_on):
     )
     sa_row = (g_st_g + (row_ids[None, :] - g_cum_prev)).clamp(0, n)
     if p.sampled_sa:
-        raise NotImplementedError("sampled_sa is not ported yet")
-    ref_en = n - idx["sa"].index_select(0, sa_row.reshape(-1)).reshape(B, R)
+        ref_en = n - sa_lookup(idx, sa_row, p.sa_intv)
+    else:
+        ref_en = n - idx["sa"].index_select(0, sa_row.reshape(-1)).reshape(
+            B, R)
 
     # the row fold: each read's rows r < total_rows in order (rows_r = 0
     # for reads that do not advance)

@@ -19,8 +19,9 @@ does no host synchronisation: every shape is static.
 Both candidate sorts run: ``sort_mode="bitonic"`` (the default on the
 card, as JAX's on its accelerator) and ``"flat"`` (the CPU default).  The
 in-scan slot handoff (``handoff``) runs, and ``migrate_pool_state`` moves
-reads into a narrower engine for the straggler drain.  ``sampled_sa``
-raises.
+reads into a narrower engine for the straggler drain.  With
+``sampled_sa`` the SA rows are looked up by LF-walk on the 1/``sa_intv``
+row sample (``ops.sa_lookup``, its own kernel on the card).
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from ..device import resolve
 from ..kmer import KMER_COUNT
 from ..ops.flat_gather import flat_gather, flat_gather_cols, pair_counts
 from ..ops import sortkern
+from ..ops.sa_lookup import sa_lookup
 from ..ops.sortkern import (
     merge_level,
     merge_level_,
@@ -691,8 +693,9 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     rr_rid = torch.where(r_ok, rr_rid, B)
     sa_row = (rr_st + r_off).clamp(0, n)
     if p.sampled_sa:
-        raise NotImplementedError("sampled_sa is not ported yet")
-    ref_en_flat = n - idx["sa"].index_select(0, sa_row)
+        ref_en_flat = n - sa_lookup(idx, sa_row, p.sa_intv)
+    else:
+        ref_en_flat = n - idx["sa"].index_select(0, sa_row)
     rr_evti = _flat_take(st["evt_i"], rr_rid.clamp(max=B - 1))
     rr_evt = torch.where(rr_end, rr_evti - 1, rr_evti)
 

@@ -39,12 +39,16 @@ NVCC_FLAGS = (
 # ends with the stream argument.
 _FUNCS = {
     "flat_gather_cols_i32": ("flat_gather", "qpp"),
-    "pair_counts_i32": ("flat_gather", "ppiiip"),
+    "pair_counts_i32": ("flat_gather", "ppiiiip"),
     "ring_assemble_i32": ("stepkern", "ppppppii"),
     "tracker_fold_compact": ("tracker_kernel", "aiiiiiii"),
     "tracker_fold_rows": ("tracker_kernel", "aiiiiiii"),
     "row_gather_cols_i32": ("row_gather", "qpp"),
     "sort_net_i32": ("sortkern", "aiipiqi"),
+    "sa_lookup_i32": ("sa_lookup", "pppppiiii"),
+    # measurement probes (chip_smoke.py), no kernel of the mapper
+    "probe_empty": ("probe", "iii"),
+    "probe_chase": ("probe", "pip"),
 }
 
 COUNTS = {
@@ -61,6 +65,7 @@ COUNTS = {
     "row_gather": 0,
     "merge_level": 0,
     "sort_runs": 0,
+    "sa_lookup": 0,
 }
 
 _libs: dict = {}

@@ -11,8 +11,9 @@ count as an int8 one-hot matmul; on the card both are direct.  The gather
 is the column-descriptor gather of ``colgather``: ``flat_gather_cols``
 reads fields where they lie (views, bools, segments and constants), and
 ``flat_gather_fields`` / ``flat_gather`` are its packed-table case (the F
-strided columns of one [N, F] table).  The pair count is one int32 atomic
-per counted key.
+strided columns of one [N, F] table).  The pair count is one cooperative
+launch that zeroes its output, crosses a grid barrier and counts with one
+atomic per run of equal cells among each thread's four keys.
 """
 
 from __future__ import annotations
@@ -23,6 +24,9 @@ from . import _cuda
 from . import colgather as cg
 
 I32, F32 = torch.int32, torch.float32
+# threads a block of the pair-count launch (one block per SM at most;
+# chip_smoke.py times 256, 512 and 1024)
+PAIR_THREADS = 256
 
 
 def flat_gather_fields_plain(tbl, idx):
@@ -88,7 +92,12 @@ def pair_counts(a, b, na: int, nb: int):
     _cuda.check(b, "pair_counts.b", (I32,), 1, a.device)
     if a.shape != b.shape:
         raise ValueError("pair_counts: a and b differ in shape")
-    out = torch.zeros((na, nb), dtype=I32, device=a.device)
-    _cuda.launch("pair_counts_i32", a, b, a.shape[0], na, nb, out)
+    if not (0 <= na and 0 <= nb and na * nb < 2**31):
+        raise ValueError(f"pair_counts: [{na}, {nb}] counters (na * nb must "
+                         "be below 2^31)")
+    # no fill here: the kernel zeroes out in the same launch
+    out = torch.empty((na, nb), dtype=I32, device=a.device)
+    _cuda.launch("pair_counts_i32", a, b, a.shape[0], na, nb, PAIR_THREADS,
+                 out)
     _cuda.COUNTS["pair_counts"] += 1
     return out
