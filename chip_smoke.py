@@ -34,7 +34,17 @@ verdict, printed only when every phase passed):
    unaligned view) and its device time at three block widths beside an
    empty kernel and an empty cooperative launch with one grid barrier;
    the LF-walk SA lookup on every row of the example index (intv 32 and
-   24);
+   24); the run sort, the merge levels to stride 1 and the whole bitonic
+   sort at the realtime engine's SC=184320 (NP=262144), and its compact
+   fold (B=512, half the threads a read), pair count into [512, 1024]
+   and ring assembly (S=147456); the streaming
+   event detector (``csrc/detect.cu``) on seeded pA signal at B=512,
+   S=4096 over three carried blocks with rows reset mid-stream (against
+   the plain version on the card) and on the 14 golden reads as rows at
+   S=4096 and S=512 (against the plain version's outputs and states from
+   the CPU worker below), with its device time, byte bound and serial
+   bound (S steps of the scan, each timed by a probe of the kernel's own
+   step on one thread);
 3. the 14 golden reads on the example index through ``BatchMapper``, on
    the pooled engine and on the classic engine, each with the full SA and
    with the 1/32 SA sample (the LF-walk kernel, in every engine of the
@@ -46,7 +56,14 @@ verdict, printed only when every phase passed):
    the golden lines; so do the conf defaults' paths, each shown to have
    run: the slot handoff (B=2, three reads), handoff with the tail-mode
    disarm, the drain chain and the bitonic merge levels (B=8), the drain
-   by migration, and the classic entry's drain by restart;
+   by migration, and the classic entry's drain by restart; then the
+   realtime cases on the card, each equal to the port's own result with
+   ``device="cpu"`` from the worker (timing tags stripped):
+   ``map_ordered`` (chunk-ordered replay), the deplete ``run_sim_loop``
+   case of tests/test_realtime.py (4 channels, 6 reads, cut to 20
+   simulated seconds), ``BatchMapper`` with ``device_dsp`` on the 13
+   golden reads that decide (the detector's launches on this path are the
+   kernels line's), and ``dump_read``'s three files;
 4. pooled at real size: a 4.7 Mb repeat-bearing genome, its index and
    thresholds built here, 8 warm-up + 512 timed simulated reads at B=256
    (reads/s, ms per event step, mapped/correct fractions, ejects per tier,
@@ -62,7 +79,7 @@ verdict, printed only when every phase passed):
    step, the SA's and the index's device bytes, live lookups re-checked;
 5. classic at real size: the same genome and reads, ``pooled = False`` at
    the conf defaults (B=64, P=1024, C=1024, CE=1280, R=256, CL=1024, T=64
-   and the default remap ladder), 8 warm-up + 256 timed reads, with the
+   and the default remap ladder), 8 warm-up + 128 timed reads, with the
    same measures plus reads per ladder rung and a profiled block on every
    rung that ran, and the same re-check of captured kernel inputs; every
    read is yielded;
@@ -74,8 +91,21 @@ verdict, printed only when every phase passed):
    merge-level inputs are re-checked against the plain versions; every
    read is yielded, with the
    very line phase 4 gave it;
+7. realtime at 512 channels: bench_sim.py's configuration (288 pool slots
+   a read, the first 1024 reads of phase 4's generator dealt by
+   ``default_pattern``, ``SimClock`` ticks of 0.3 s, deplete) on phase 4's
+   genome, 10 simulated seconds (bench_sim.py runs 30): realtime factor,
+   decisions, ej / en / ovf give-ups, eject latency on the sim clock, wall
+   ms per update, peak device memory, and the fraction of mapped decisions
+   that meet the truth rule (gate 0.90); after the timed window, on the
+   live state, the inputs of every pooled kernel (one whole NP=262144
+   sort among them) are captured and re-checked against the plain
+   versions bit for bit, and one update is traced (device ms, idle share,
+   kernels per step);
 
-then the ``{"kernels": [...]}`` line and the verdict.
+then the ``{"kernels": [...]}`` line and the verdict.  The CPU references
+of the realtime checks run in a worker process (this script with
+``--cpu-refs``, no card) beside phases 1-3, and end with the run.
 
 Imports nothing of JAX.  Exits non-zero without a CUDA card, or when run
 outside a checkout of the repository.
@@ -84,8 +114,11 @@ outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -102,7 +135,9 @@ S_FULL = B_FULL * SPR  # 98304
 SC_FULL = S_FULL + S_FULL // 4  # 122880
 RT_FULL = 24 * B_FULL  # 6144
 RING = 23
-N_POOLED, N_CLASSIC = 512, 256  # timed reads of phases 4 (and 6) and 5
+# timed reads of phases 4 (and 6) and 5 (phase 5 cut from 256 to 128 to
+# make room for phase 7 in the time limit)
+N_POOLED, N_CLASSIC = 512, 128
 N_SAMPLED = 256  # phase 4's sampled-SA run: the first of its timed reads
 POOLED_KERNELS = ("flat_gather", "pair_counts", "ring_assemble",
                   "tracker_fold")
@@ -141,15 +176,30 @@ KERNELS = {
     "sa_lookup": dict(
         route="cuda", source="uncalled_tpu_torch/csrc/sa_lookup.cu",
         replaces="uncalled_tpu/mapping/engine.py:338-383"),
+    # no Pallas kernel: the lax.scan of the JAX streaming event detector
+    "detect": dict(
+        route="cuda", source="uncalled_tpu_torch/csrc/detect.cu",
+        replaces="uncalled_tpu/ops/events.py:338-471"),
 }
+# the device event detector (phase 2 at B=512, S=4096 over three blocks)
+DET_B, DET_S, DET_NB = 512, 4096, 3
+# phase 3's realtime cases: simulated seconds of the deplete sim case (the
+# JAX test runs 120; its six reads cycle), events in the debug dump
+SIM3_SECS, DUMP_EVENTS = 20.0, 256
+# phase 7, bench_sim.py's configuration cut from 30 to 10 simulated
+# seconds: channels, pool slots a read, reads dealt, seconds, tick, and the
+# truth-rule gate on the mapped decisions
+RT_CH, RT_SPR, RT_READS, RT_SECS, RT_TICK = 512, 288, 1024, 10.0, 0.3
+RT_TRUTH_MIN = 0.90
+SC_RT = RT_CH * RT_SPR + RT_CH * RT_SPR // 4  # 184320: NP = 262144
 # the sampled-SA paths add the LF-walk lookup to each engine's kernels
 SAMPLED_POOLED = POOLED_KERNELS + ("sa_lookup",)
 SAMPLED_CLASSIC = CLASSIC_KERNELS + ("sa_lookup",)
 SA_INTV = 32
 # probe.cu holds measurement probes (an empty launch, a pointer chase), no
 # kernel of the mapper
-STEMS = ("flat_gather", "probe", "row_gather", "sa_lookup", "sortkern",
-         "stepkern", "tracker_kernel")
+STEMS = ("detect", "flat_gather", "probe", "row_gather", "sa_lookup",
+         "sortkern", "stepkern", "tracker_kernel")
 
 
 def log(*a):
@@ -169,6 +219,8 @@ def bits(t):
 
     if t.dtype == torch.float32:
         return t.view(torch.int32)
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
     return t
 
 
@@ -360,21 +412,21 @@ def pair_case(rng, dev):
             torch.from_numpy(b.astype(np.int32)).to(dev))
 
 
-def ring_case(rng, dev):
+def ring_case(rng, dev, S=S_FULL):
     import torch
 
-    old = rng.integers(-2**31, 2**31 - 1, size=(S_FULL, RING),
+    old = rng.integers(-2**31, 2**31 - 1, size=(S, RING),
                        dtype=np.int64).astype(np.int32)
     special = np.array([0, -2**31, 0x7F800000, -8388608, 0x7FC00001,
                         -1], np.int64).astype(np.int32)  # +0 -0 inf -inf nan
     old.reshape(-1)[rng.integers(0, old.size, 4096)] = rng.choice(
         special, 4096)
-    rsrc = rng.integers(-1, S_FULL, size=S_FULL).astype(np.int32)
-    rslot = rng.integers(-1, RING, size=S_FULL).astype(np.int32)
-    rval = rng.integers(-2**31, 2**31 - 1, size=S_FULL,
+    rsrc = rng.integers(-1, S, size=S).astype(np.int32)
+    rslot = rng.integers(-1, RING, size=S).astype(np.int32)
+    rval = rng.integers(-2**31, 2**31 - 1, size=S,
                         dtype=np.int64).astype(np.int32)
-    rval[rng.integers(0, S_FULL, 512)] = rng.choice(special, 512)
-    keep = rng.random(S_FULL) < 0.9
+    rval[rng.integers(0, S, 512)] = rng.choice(special, 512)
+    keep = rng.random(S) < 0.9
     t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
     return (t(old).view(torch.float32), t(rsrc), t(rslot),
             t(rval).view(torch.float32), t(keep))
@@ -1026,7 +1078,39 @@ def phase_kernels(out, rate):
                          rows_longest=int(rows_r.clamp(max=R).max()))
     ok &= phase_merge(out, rate, rng, dev)
     ok &= phase_folds(out, dev)
+    ok &= realtime_shapes(dev)
     ok &= sa_lookup_example(out, dev)
+    return ok
+
+
+def realtime_shapes(dev) -> bool:
+    """The pooled kernels at the realtime engine's shapes (phase 7: B=512,
+    S=147456, SC=184320, RT=12288) against their plain versions, bit for
+    bit: the compact fold in its three regimes (fold_launch halves the
+    threads a read at B=512), the pair count's adversarial keys into
+    [512, 1024] and the ring assembly.  Its own seed."""
+    from uncalled_tpu_torch.ops import flat_gather as fg
+    from uncalled_tpu_torch.ops import stepkern as sk
+    from uncalled_tpu_torch.ops import tracker_kernel as tk
+
+    rng = np.random.default_rng(20261018)
+    B, S, RT = RT_CH, RT_CH * RT_SPR, 24 * RT_CH
+    fl = tk.fold_launch(CL_FULL, B)
+    ok = True
+    for regime, fill in FOLD_REGIMES:
+        a = (25, *tracker_case(rng, dev, B, CL_FULL, RT,
+                               0.7 if fill is None else fill))
+        ok &= check(f"tracker_fold[{fl.form}, {fl.threads} threads a read, "
+                    f"B={B} CL={CL_FULL} RT={RT} {regime}]",
+                    tk.tracker_run_compact(*a),
+                    tk.tracker_run_compact_plain(*a))
+    for label, x, y in pair_cases(rng, dev, B, 1024, K=SC_RT):
+        ok &= check(f"pair_counts[{label}, K={x.numel()} -> [{B}, 1024]]",
+                    fg.pair_counts(x, y, B, 1024),
+                    fg.pair_counts_plain(x, y, B, 1024))
+    args = ring_case(rng, dev, S)
+    ok &= check(f"ring_assemble[S={S}]", sk.ring_assemble(*args),
+                sk.ring_assemble_plain(*args))
     return ok
 
 
@@ -1258,9 +1342,10 @@ def phase_merge(out, rate, rng, dev):
                 shape=f"NK={NK_SORT} {label}")
     # the run sort (headline: the step's SC padded to NP, runs of RUN_TILE)
     # and the merge level to stride 1, against their plain versions
-    for n, iota in ((SC_FULL, True), (131072, True), (32768, True),
-                    (16384, True), (8192, True), (20000, False),
-                    (5000, False)):
+    # SC_RT: the realtime engine at 512 channels (NP = 262144)
+    for n, iota in ((SC_FULL, True), (SC_RT, True), (131072, True),
+                    (32768, True), (16384, True), (8192, True),
+                    (20000, False), (5000, False)):
         ks = sort_keys_case(rng, dev, n)
         if not iota:  # few values and no creation index: whole tuples tie
             ks[4] = ks[4] % 2
@@ -1283,6 +1368,13 @@ def phase_merge(out, rate, rng, dev):
             ok &= check(f"merge_level[{label} k_lv={k_lv} C=1]",
                         sk.merge_level(pad, k_lv, 1),
                         sk.merge_level_plain(pad, k_lv, 1))
+    # the whole candidate sort at the realtime engine's SC, against the
+    # flat sort
+    from uncalled_tpu_torch.mapping import pooled as pm
+
+    ks = sort_keys_case(rng, dev, SC_RT)
+    ok &= check(f"sort1d_bitonic vs flat sort at SC={SC_RT} (NP=262144)",
+                pm._sort1d_bitonic(ks), pm._sort1d(ks))
     ks = sort_keys_case(rng, dev, 131072)
     ok &= report(shapes, "merge_level", sk.merge_level(ks, 131072, 1),
                  sk.merge_level_plain(ks, 131072, 1), rate,
@@ -1738,7 +1830,7 @@ def real_assets():
 def build_assets(work):
     """The 4.7 Mb genome (seed 42), its index and thresholds, and 8 + 512
     mismatched simulated reads (seed 123), built from the port's copies
-    (phase 5 maps the first 8 + 256 of the same reads)."""
+    (phase 5 maps the first 8 + 128 of the same reads)."""
     from uncalled_tpu_torch.index.build import build_index
     from uncalled_tpu_torch.index.parameterize import build_uncl
     from uncalled_tpu_torch.mapping.thresholds import load_uncl
@@ -1769,14 +1861,128 @@ def build_assets(work):
     return fmi, th, reads
 
 
+POOLED_HOOKS = {  # a captured kernel -> the pooled step's name for it
+    "tracker_fold": "tracker_run_compact", "ring_assemble": "ring_assemble",
+    "pair_counts": "pair_counts", "flat_gather": "flat_gather_cols",
+    "sort_runs": "sort_runs", "merge_level": "merge_level_"}
+
+
+@contextlib.contextmanager
+def capture_pooled(limits, NP=None):
+    """Copies of the inputs of the pooled step's kernel calls while the
+    block runs: up to limits[name] calls of each kernel named, tracker
+    folds only where they carry seed rows, and with NP only the sorts of
+    that padded width (the merge levels of the first sort captured).
+    Yields {name: [argument tuple, ...]} for pooled_pair."""
+    import uncalled_tpu_torch.mapping.pooled as pooled
+
+    cap = {k: [] for k in limits}
+    take = dict(
+        tracker_fold=lambda *a: int(a[6].sum()) > 0,
+        sort_runs=lambda keys, n, w: NP is None or n == NP,
+        merge_level=lambda buf, k, c: bool(cap.get("sort_runs")) and (
+            NP is None or buf.shape[1] == NP))
+    copy = dict(
+        tracker_fold=lambda *a: (a[0], {k: v.clone() for k, v in a[1].items()},
+                                 *[x.clone() for x in a[2:]]),
+        ring_assemble=lambda *a: tuple(x.clone() for x in a),
+        pair_counts=lambda x, y, na, nb: (x.clone(), y.clone(), na, nb),
+        flat_gather=lambda cols, idx, lens=None: (keep(cols), idx.clone(),
+                                                  lens),
+        sort_runs=lambda keys, n, w: ([k.clone() for k in keys], n, w),
+        merge_level=lambda buf, k, c: (buf.clone(), k, c))
+    orig = {k: getattr(pooled, POOLED_HOOKS[k]) for k in limits}
+
+    def hook(name):
+        def f(*a, **kw):
+            if len(cap[name]) < limits[name] and take.get(
+                    name, lambda *_, **__: True)(*a, **kw):
+                cap[name].append(copy[name](*a, **kw))
+            return orig[name](*a, **kw)
+        return f
+
+    for k in limits:
+        setattr(pooled, POOLED_HOOKS[k], hook(k))
+    try:
+        yield cap
+    finally:
+        for k, f in orig.items():
+            setattr(pooled, POOLED_HOOKS[k], f)
+
+
+def pooled_pair(name, a):
+    """The kernel's and the plain version's results on the same captured
+    call (capture_pooled's argument tuples)."""
+    import torch
+
+    from uncalled_tpu_torch.ops import flat_gather as fg
+    from uncalled_tpu_torch.ops import sortkern as sk
+    from uncalled_tpu_torch.ops import stepkern as stk
+    from uncalled_tpu_torch.ops import tracker_kernel as tk
+
+    if name == "tracker_fold":
+        return tk.tracker_run_compact(*a), tk.tracker_run_compact_plain(*a)
+    if name == "ring_assemble":
+        return stk.ring_assemble(*a), stk.ring_assemble_plain(*a)
+    if name == "pair_counts":
+        return fg.pair_counts(*a), fg.pair_counts_plain(*a)
+    if name == "flat_gather":
+        return fg.flat_gather_cols(*a), fg.flat_gather_cols_plain(*a)
+    if name == "sort_runs":
+        return sk.sort_runs(*a), torch.stack(sk.sort_runs_plain(*a))
+    buf, k_lv, C = a
+    got = buf.clone()
+    sk.merge_level_(got, k_lv, C)
+    return got, torch.stack(sk.merge_level_plain(list(buf.unbind(0)), k_lv,
+                                                 C))
+
+
+def recheck_captured(cap, ph) -> bool:
+    """Every captured call re-run through its kernel and its plain version
+    on the card, bit for bit; each kernel named must have a capture."""
+    import torch
+
+    ok = True
+    for name, calls in cap.items():
+        for i, a in enumerate(calls):
+            got, want = pooled_pair(name, a)
+            torch.cuda.synchronize()
+            eq = same_bits(got, want)
+            ok &= eq
+            log(f"[{ph}] captured {name}#{i}{capture_shape(name, a)}: "
+                f"{'bit-equal' if eq else 'MISMATCH'}")
+        if not calls:
+            log(f"[{ph}] captured {name}: no call captured")
+        ok &= bool(calls)
+    return ok
+
+
+def capture_shape(name, a) -> str:
+    """What a captured call ran at: the fold's launch form, the count's
+    shape, the sort's width."""
+    from uncalled_tpu_torch.ops import tracker_kernel as tk
+
+    if name == "tracker_fold":
+        B, CL = a[1]["cl_valid"].shape
+        fl = tk.fold_launch(CL, B)
+        return f" (B={B} CL={CL} {fl.form}, {fl.threads} threads a read)"
+    if name == "pair_counts":
+        return f" (keys {a[0].numel()}, [{a[2]}, {a[3]}])"
+    if name == "ring_assemble":
+        return f" (ring {tuple(a[0].shape)})"
+    if name == "sort_runs":
+        return f" (NP={a[1]}, W={a[2]})"
+    if name == "merge_level":
+        return f" (NP={a[0].shape[1]}, k_lv={a[1]}, C={a[2]})"
+    return ""
+
+
 def phase_real(out, rate):
     import torch
 
-    import uncalled_tpu_torch.mapping.pooled as pooled
     from uncalled_tpu_torch.mapping.batch import BatchMapper
     from uncalled_tpu_torch.ops import _cuda
     from uncalled_tpu_torch.ops import flat_gather as fg
-    from uncalled_tpu_torch.ops import stepkern as sk
     from uncalled_tpu_torch.ops import tracker_kernel as tk
     from uncalled_tpu_torch.poremodel import load_default
 
@@ -1790,62 +1996,13 @@ def phase_real(out, rate):
 
     # capture live kernel inputs during the warm-up run (first calls that
     # carry seed rows), to re-check kernel vs plain on real step data
-    captured = {"tracker_fold": [], "ring_assemble": [], "pair_counts": [],
-                "flat_gather": []}
-    orig = (pooled.tracker_run_compact, pooled.ring_assemble,
-            pooled.pair_counts, pooled.flat_gather_cols)
-
-    def cap_tracker(*a):
-        if len(captured["tracker_fold"]) < 3 and int(a[6].sum()) > 0:
-            captured["tracker_fold"].append(
-                (a[0], {k: v.clone() for k, v in a[1].items()},
-                 *[x.clone() for x in a[2:]]))
-        return orig[0](*a)
-
-    def cap_ring(*a):
-        if len(captured["ring_assemble"]) < 3:
-            captured["ring_assemble"].append(tuple(x.clone() for x in a))
-        return orig[1](*a)
-
-    def cap_pairs(*a):
-        if len(captured["pair_counts"]) < 3:
-            captured["pair_counts"].append(
-                (a[0].clone(), a[1].clone(), a[2], a[3]))
-        return orig[2](*a)
-
-    def cap_gather(cols, idx, lens=None):
-        if len(captured["flat_gather"]) < 9:
-            captured["flat_gather"].append((keep(cols), idx.clone(), lens))
-        return orig[3](cols, idx, lens)
-
-    pooled.tracker_run_compact, pooled.ring_assemble = cap_tracker, cap_ring
-    pooled.pair_counts, pooled.flat_gather_cols = cap_pairs, cap_gather
     warm = [_Read(r.id, r.signal) for r in sim[:8]]
     t0 = time.time()
-    n_warm = sum(1 for _ in bm.map_reads(warm))
+    with capture_pooled(dict(tracker_fold=3, ring_assemble=3, pair_counts=3,
+                             flat_gather=9)) as captured:
+        n_warm = sum(1 for _ in bm.map_reads(warm))
     log(f"[4] warm-up: {n_warm} reads in {time.time() - t0:.2f} s")
-    (pooled.tracker_run_compact, pooled.ring_assemble, pooled.pair_counts,
-     pooled.flat_gather_cols) = orig
-
-    ok = True
-    for name, calls in captured.items():
-        for i, a in enumerate(calls):
-            if name == "tracker_fold":
-                got, want = tk.tracker_run_compact(*a), \
-                    tk.tracker_run_compact_plain(*a)
-            elif name == "ring_assemble":
-                got, want = sk.ring_assemble(*a), sk.ring_assemble_plain(*a)
-            elif name == "pair_counts":
-                got, want = fg.pair_counts(*a), fg.pair_counts_plain(*a)
-            else:
-                got, want = fg.flat_gather_cols(*a), \
-                    fg.flat_gather_cols_plain(*a)
-            torch.cuda.synchronize()
-            eq = same_bits(got, want)
-            ok &= eq
-            log(f"[4] captured {name}#{i}: "
-                f"{'bit-equal' if eq else 'MISMATCH'}")
-        ok &= bool(calls)
+    ok = recheck_captured(captured, 4)
     # the pair count on the live step's keys (most of them out of domain)
     if captured["pair_counts"]:
         pa_ = captured["pair_counts"][-1]
@@ -2265,7 +2422,6 @@ def phase_defaults(out):
     every timed read's PAF line must equal phase 4's."""
     import torch
 
-    import uncalled_tpu_torch.mapping.pooled as pooled
     from uncalled_tpu_torch.config import Conf
     from uncalled_tpu_torch.mapping.batch import BatchMapper
     from uncalled_tpu_torch.ops import _cuda
@@ -2295,32 +2451,17 @@ def phase_defaults(out):
 
     # the timed run; the first full-width sort's inputs are captured: the
     # run sort's keys and each merge level's buffer
-    captured = []
-    orig = (pooled.sort_runs, pooled.merge_level_)
-
-    def cap_runs(keys, NP, W):
-        if not captured and NP == 131072:
-            captured.append(("sort_runs", [k.clone() for k in keys], NP, W))
-        return orig[0](keys, NP, W)
-
-    def cap_level(buf, k_lv, C):
-        if captured and len(captured) < 5 and buf.shape[1] == 131072:
-            captured.append(("merge_level", buf.clone(), k_lv, C))
-        return orig[1](buf, k_lv, C)
-
     truth = {r.id: (r.ref_name, r.ref_start, r.ref_end, r.fwd) for r in sim}
     timed = [_Read(r.id, r.signal) for r in sim[8:]]
     bm2 = BatchMapper(fmi, model, th, conf, engine=bm.eng)
-    pooled.sort_runs, pooled.merge_level_ = cap_runs, cap_level
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _cuda.reset_counts()
     t0 = time.time()
-    try:
+    with capture_pooled(dict(sort_runs=1, merge_level=4),
+                        NP=131072) as captured:
         pafs = list(bm2.map_reads(timed))
         torch.cuda.synchronize()
-    finally:
-        pooled.sort_runs, pooled.merge_level_ = orig
     dt = time.time() - t0
     counts = dict(_cuda.COUNTS)
     chain = _chain(bm2)
@@ -2364,23 +2505,9 @@ def phase_defaults(out):
     log("[6] tracker fold forms: " + json.dumps(fold_forms(counts)))
     for r in differ[:5]:
         log(f"[6]   {r}: {lines4.get(r)!r} (phase 4) vs this run's line")
-    for i, (name, a, n, w) in enumerate(captured):
-        if name == "sort_runs":
-            got = sk.sort_runs(a, n, w)
-            want = torch.stack(sk.sort_runs_plain(a, n, w))
-            what = f"NP={n}, W={w}"
-        else:
-            got = a.clone()
-            sk.merge_level_(got, n, w)
-            want = torch.stack(sk.merge_level_plain(list(a.unbind(0)), n, w))
-            what = f"k_lv={n}, C={w}"
-        torch.cuda.synchronize()
-        eq = same_bits(got, want)
-        ok &= eq
-        log(f"[6] captured {name}#{i} ({what}): "
-            f"{'bit-equal' if eq else 'MISMATCH'}")
+    ok &= recheck_captured(captured, 6)
     levels = (131072 // min(sk.RUN_TILE, 131072)).bit_length() - 1
-    ok &= len(captured) == 1 + min(levels, 4)
+    ok &= len(captured["merge_level"]) == min(levels, 4)
     out["defaults_profile"] = profile_block(bm2, timed)
     log("[6] profile: " + json.dumps(out["defaults_profile"]))
     ok &= (len(pafs) == len(timed) and not differ and n_mapped > 0
@@ -2389,6 +2516,633 @@ def phase_defaults(out):
     for k in ("sort_runs", "merge_level"):
         if k in out["kernels"]:
             out["kernels"][k]["launches"] = counts[k]
+    return ok
+
+
+# ---------------------------------------------------------------------------
+# the realtime layer and the device event detector (phases 2, 3 and 7)
+# ---------------------------------------------------------------------------
+
+_WALL_TAGS = re.compile(r"\t(mt|qt|wt):f:[^\t]*")
+
+
+def strip_wall(line: str) -> str:
+    """A PAF line without its wall-clock timing tags (mt, qt, wt)."""
+    return _WALL_TAGS.sub("", line)
+
+
+def example_assets():
+    """The example index, the pore model, the thresholds and the index
+    prefix (tests/fixtures)."""
+    from uncalled_tpu_torch.index.bwa_compat import load_bwa_index
+    from uncalled_tpu_torch.mapping.thresholds import load_uncl
+    from uncalled_tpu_torch.poremodel import load_default
+
+    prefix = os.path.join(REPO, "tests", "fixtures", "example_index",
+                          "example_ref")
+    return (load_bwa_index(prefix), load_default(),
+            load_uncl(prefix + ".uncl"), prefix)
+
+
+def golden_signals():
+    fx = os.path.join(REPO, "tests", "fixtures")
+    with open(os.path.join(fx, "golden_pafs.json")) as f:
+        golden = json.load(f)
+    return golden, np.load(os.path.join(fx, "golden_reads.npz"))
+
+
+def rt_map_ordered(device):
+    """tests/test_realtime.py's chunk-ordered replay case: PAF lines in
+    completion order, timing tags stripped."""
+    from uncalled_tpu_torch.config import Conf
+    from uncalled_tpu_torch.mapping.ordered import map_ordered
+    from uncalled_tpu_torch.testing.simulate import simulate_reads
+
+    fmi, model, th, prefix = example_assets()
+    reads = simulate_reads(prefix + ".fa", 4, seed=31,
+                           read_len_bp=(900, 1600))
+    for i, r in enumerate(reads):
+        r.channel = (i % 2) + 1
+        r.start_sample = 10000 * (i // 2) + 1
+    conf = Conf()
+    conf.engine.evt_block = 64
+    return [strip_wall(p.to_line()) for p in map_ordered(
+        fmi, model, th, reads, conf, P=1024, C=1024, R=64, CL=256,
+        device=device)]
+
+
+def rt_sim(device):
+    """tests/test_realtime.py's deplete sim case (4 channels, 6 reads that
+    cycle, 0.2 s ticks on a SimClock), cut to SIM3_SECS simulated seconds:
+    every output line (timing tags stripped) and the give-up records."""
+    from uncalled_tpu_torch.config import Conf
+    from uncalled_tpu_torch.realtime.clientsim import ClientSim
+    from uncalled_tpu_torch.realtime.mapper import RealtimeMapper
+    from uncalled_tpu_torch.realtime.sim import (SimClock, default_pattern,
+                                                 run_sim_loop)
+    from uncalled_tpu_torch.testing.simulate import simulate_reads
+
+    fmi, model, th, prefix = example_assets()
+    reads = simulate_reads(prefix + ".fa", 6, seed=21,
+                           read_len_bp=(800, 1500))
+    for i, r in enumerate(reads):
+        r.number = i + 1
+    conf = Conf()
+    conf.reads.num_channels = 4
+    conf.engine.evt_block = 64
+    conf.simulator.sim_speed = 1.0
+    clock = SimClock()
+    client = ClientSim(conf, clock=clock)
+    default_pattern(client, reads,
+                    duration_samples=sum(r.raw_len for r in reads) * 3,
+                    gap=2000)
+    client.load_reads(reads)
+    rt = RealtimeMapper(fmi, model, th, conf, P=1024, C=1024, R=64, CL=256,
+                        device=device)
+    buf = io.StringIO()
+    run_sim_loop(client, rt, conf, deplete=True, out=buf, sleep=0.2,
+                 clock=clock, max_wall=SIM3_SECS)
+    return ([strip_wall(x) for x in buf.getvalue().splitlines()],
+            [list(g) for g in rt.giveups])
+
+
+def rt_dsp_golden(device):
+    """BatchMapper with conf.engine.device_dsp on the 13 golden reads that
+    decide (pooled, B=4): read id -> PAF line."""
+    from uncalled_tpu_torch.mapping.batch import BatchMapper
+
+    fmi, model, th, _ = example_assets()
+    golden, sigs = golden_signals()
+    conf = _conf(4, 512, 64)
+    conf.engine.device_dsp = True
+    bm = BatchMapper(fmi, model, th, conf, device=device)
+    reads = [_Read(r, sigs[r]) for r in golden if r != "noise_1"]
+    return {p.rd_name: p.to_line() for p in bm.map_reads(reads)}
+
+
+DUMP_RID = "sim_0000_Escherichia_coli_3854_+"
+
+
+def rt_dump(device):
+    """dump_read of one golden read (conf defaults at B=1, the wide classic
+    engine for the dump), its first DUMP_EVENTS events: the PAF line, the
+    seed rows and the bytes of the three files."""
+    import tempfile
+
+    from uncalled_tpu_torch.config import Conf
+    from uncalled_tpu_torch.debug import dump_read
+    from uncalled_tpu_torch.mapping.batch import BatchMapper
+
+    fmi, model, th, _ = example_assets()
+    _, sigs = golden_signals()
+    conf = Conf()
+    conf.engine.batch_reads = 1
+    bm = BatchMapper(fmi, model, th, conf, device=device)
+    with tempfile.TemporaryDirectory(dir=os.path.join(
+            REPO, "uncalled_tpu_torch", "_build")) as tmp:
+        paf, n_rows = dump_read(bm, _Read(DUMP_RID, sigs[DUMP_RID]),
+                                os.path.join(tmp, "d_"),
+                                max_events=DUMP_EVENTS)
+        files = {}
+        for suffix in ("_events.tsv", "_seeds.bed", "_paths.tsv"):
+            with open(os.path.join(tmp, f"d_{DUMP_RID}{suffix}"), "rb") as f:
+                files[suffix] = f.read()
+    return paf.to_line(), n_rows, files
+
+
+def golden_rows():
+    """The 14 golden reads as detector rows, zero-padded to a whole number
+    of 4096-sample blocks: (names, [14, L] f32)."""
+    _, sigs = golden_signals()
+    names = list(sigs.files)
+    L = max(len(sigs[r]) for r in names)
+    L = -(-L // 4096) * 4096
+    rows = np.zeros((len(names), L), np.float32)
+    for i, r in enumerate(names):
+        rows[i, : len(sigs[r])] = sigs[r]
+    return names, rows
+
+
+def detect_golden_plain():
+    """The plain detector over the golden rows in 4096-sample blocks on the
+    CPU: every block's outputs, concatenated, and the state after each
+    block (numpy)."""
+    import torch
+
+    from uncalled_tpu_torch.ops import events as ev
+
+    _, rows = golden_rows()
+    st = ev.make_detector_state(rows.shape[0])
+    outs, states = {k: [] for k in ev.OUT_KEYS}, []
+    for b in range(rows.shape[1] // 4096):
+        st, o = ev.detect_block_plain(
+            st, torch.from_numpy(rows[:, b * 4096: (b + 1) * 4096]))
+        for k in ev.OUT_KEYS:
+            outs[k].append(o[k].numpy())
+        states.append({k: v.numpy() for k, v in st.items()})
+    return {k: np.concatenate(v, 1) for k, v in outs.items()}, states
+
+
+# the CPU references the card's realtime checks are held to, in the order
+# the phases need them
+CPU_REFS = (("detect_golden", detect_golden_plain),
+            ("dump_read", lambda: rt_dump("cpu")),
+            ("map_ordered", lambda: rt_map_ordered("cpu")),
+            ("dsp_golden", lambda: rt_dsp_golden("cpu")),
+            ("sim", lambda: rt_sim("cpu")))
+
+
+def cpu_refs_worker(path):
+    """The worker process: compute CPU_REFS on the CPU with the port's own
+    code (device="cpu"), one pickle per result as it finishes."""
+    import pickle
+    import traceback
+
+    import torch
+
+    torch.set_num_threads(2)
+    for name, fn in CPU_REFS:
+        t0 = time.time()
+        try:
+            res = dict(ok=True, value=fn())
+        except Exception:  # noqa: BLE001 - reported to the main process
+            res = dict(ok=False, error=traceback.format_exc())
+        res["seconds"] = time.time() - t0
+        with open(f"{path}.{name}.tmp", "wb") as f:
+            pickle.dump(res, f)
+        os.replace(f"{path}.{name}.tmp", f"{path}.{name}.pkl")
+    return 0
+
+
+class CpuRefs:
+    """The worker process that computes CPU_REFS while the card runs phases
+    2 and 3 (no card: CUDA_VISIBLE_DEVICES is empty there)."""
+
+    def __init__(self):
+        from uncalled_tpu_torch import native
+        from uncalled_tpu_torch.ops._cuda import BUILD_DIR
+
+        native.available()  # build the host library before the worker runs
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        self.path = os.path.join(BUILD_DIR, "cpu_refs")
+        for name, _ in CPU_REFS:
+            if os.path.exists(f"{self.path}.{name}.pkl"):
+                os.remove(f"{self.path}.{name}.pkl")
+        self.log = open(self.path + ".log", "w")
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--cpu-refs",
+             self.path], stdout=self.log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), cwd=REPO)
+        self.t0 = time.time()
+
+    def get(self, name, timeout=1500.0):
+        import pickle
+
+        f = f"{self.path}.{name}.pkl"
+        t0 = time.time()
+        while not os.path.exists(f):
+            if self.proc.poll() is not None and not os.path.exists(f):
+                raise RuntimeError(f"the CPU reference worker ended (rc "
+                                   f"{self.proc.returncode}) without {name}")
+            if time.time() - t0 > timeout:
+                raise RuntimeError(f"no CPU reference {name} in {timeout} s")
+            time.sleep(0.5)
+        with open(f, "rb") as fh:
+            res = pickle.load(fh)
+        log(f"[cpu] reference {name}: {res['seconds']:.1f} s on the CPU, "
+            f"waited {time.time() - t0:.1f} s")
+        if not res["ok"]:
+            raise RuntimeError(f"CPU reference {name} failed:\n"
+                               + res["error"])
+        return res["value"]
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.terminate()
+            try:
+                self.proc.wait(30)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait()
+        self.log.close()
+
+
+def detect_signals(rng, B, n):
+    """Seeded signal in pA: k-mer levels ~ N(90, 12) held for a geometric
+    number of samples (mean 9), plus N(0, 1.5) noise, clipped to
+    [40, 140], f32."""
+    seg = np.minimum(np.cumsum(rng.random((B, n)) < 1 / 9, axis=1), n - 1)
+    lv = rng.normal(90.0, 12.0, (B, n))
+    x = np.take_along_axis(lv, seg, 1) + rng.normal(0.0, 1.5, (B, n))
+    return np.clip(x, 40.0, 140.0).astype(np.float32)
+
+
+def scan_step_ns(dev, steps=(20000, 60000)):
+    """Nanoseconds of one step of the detector's scan on one thread, at two
+    chain lengths, so the launch cancels out of the difference.  It is the
+    latency of this implementation's step, not a floor of the hardware."""
+    import torch
+
+    from uncalled_tpu_torch.ops import _cuda
+
+    res = torch.empty(1, dtype=torch.float64, device=dev)
+    # CUDA events: the difference of two single-thread chains cancels the
+    # launch (the profiler lost these one-block launches in a run)
+    ms = [time_ms(lambda k=k: _cuda.launch("probe_detect_chain", k, res),
+                  reps=10)
+          for k in steps]
+    return (ms[1] - ms[0]) * 1e6 / (steps[1] - steps[0])
+
+
+def phase_detect(out, rate, dev, refs):
+    """The device event detector against its plain version, bit for bit:
+    seeded pA signal at B=512, S=4096 over three carried blocks with some
+    rows reset mid-stream (the plain version on the card), and the 14
+    golden reads (the real read among them) as rows at S=4096 and S=512
+    (against the plain version's blocks of 4096 from the CPU worker:
+    outputs do not depend on the block size); its device ms, byte bound
+    and serial bound (a probe of one sample's dependent chain)."""
+    import torch
+
+    from uncalled_tpu_torch.ops import events as ev
+
+    ok = True
+    rng = np.random.default_rng(20261017)
+    B, S, NB = DET_B, DET_S, DET_NB
+    sig = detect_signals(rng, B, S * NB)
+    # a constant row and a constant stretch: NaN t-stats (0 / 0) and a
+    # flushed subnormal in the t-stat windows
+    sig[0] = 77.0
+    sig[1, S - 1000: S + 1000] = 91.25
+    exact = all(ev.prefix_sums_exact(r) for r in sig)
+    log(f"[2] detect: seeded B={B} S={S} x {NB} blocks, prefix sums exact "
+        f"on every row: {exact}")
+    ok &= exact
+    sig_d = torch.from_numpy(sig).to(dev)
+    reset = torch.from_numpy(np.arange(B) % 7 == 3).to(dev)
+    sk, sp = ev.make_detector_state(B, dev), ev.make_detector_state(B, dev)
+    st0 = sk
+    fired = 0
+    for b in range(NB):
+        if b == 1:  # every 7th row starts a new read mid-stream
+            sk = ev.reset_detector_rows(sk, reset)
+            sp = ev.reset_detector_rows(sp, reset)
+        blk = sig_d[:, b * S: (b + 1) * S].contiguous()
+        sk, ko = ev.detect_block(sk, blk)
+        sp, po = ev.detect_block_plain(sp, blk)
+        ok &= check(f"detect[seeded B={B} S={S} block {b}: outputs]", ko, po)
+        ok &= check(f"detect[seeded B={B} S={S} block {b}: state]", sk, sp)
+        fired += int(ko["fired"].sum())
+    log(f"[2] detect: {fired} events over the seeded blocks")
+    # other block sizes: the smallest JAX takes (2 * TAIL) and sizes that
+    # end inside a 512-sample chunk
+    for Sx in (2 * ev.TAIL, 1000, 1537):
+        sx = torch.from_numpy(detect_signals(rng, 64, 2 * Sx)).to(dev)
+        sk2 = ev.make_detector_state(64, dev)
+        sp2 = ev.make_detector_state(64, dev)
+        for b in range(2):
+            blk = sx[:, b * Sx: (b + 1) * Sx].contiguous()
+            sk2, ko = ev.detect_block(sk2, blk)
+            sp2, po = ev.detect_block_plain(sp2, blk)
+            ok &= check(f"detect[seeded B=64 S={Sx} block {b}]",
+                        (ko, sk2), (po, sp2))
+
+    names, rows = golden_rows()
+    exact = all(ev.prefix_sums_exact(r) for r in rows)
+    ok &= exact
+    want_out, want_states = refs.get("detect_golden")
+    rows_d = torch.from_numpy(rows).to(dev)
+    for Sg in (4096, 512):
+        st = ev.make_detector_state(len(names), dev)
+        outs = {k: [] for k in ev.OUT_KEYS}
+        st_ok = True
+        for b in range(rows.shape[1] // Sg):
+            st, o = ev.detect_block(
+                st, rows_d[:, b * Sg: (b + 1) * Sg].contiguous())
+            for k in ev.OUT_KEYS:
+                outs[k].append(o[k])
+            if ((b + 1) * Sg) % 4096 == 0:
+                want = want_states[(b + 1) * Sg // 4096 - 1]
+                st_ok &= all(same_bits(st[k].cpu(), torch.from_numpy(want[k]))
+                             for k in ev.STATE_KEYS)
+        got = {k: torch.cat(v, 1).cpu() for k, v in outs.items()}
+        out_ok = all(same_bits(got[k], torch.from_numpy(want_out[k]))
+                     for k in ev.OUT_KEYS)
+        real = names.index("f41a60f7-de4a-4b17-9f54-387e52d60b65")
+        real_ok = all(same_bits(got[k][real], torch.from_numpy(
+            want_out[k][real])) for k in ev.OUT_KEYS)
+        log(f"[2] detect[14 golden rows S={Sg}, {rows.shape[1]} samples; "
+            f"prefix sums exact {exact}]: outputs "
+            f"{'bit-equal' if out_ok else 'MISMATCH'}, state every 4096 "
+            f"samples {'bit-equal' if st_ok else 'MISMATCH'}, the real read "
+            f"{'bit-equal' if real_ok else 'MISMATCH'}")
+        ok &= out_ok and st_ok and real_ok
+
+    # time and bounds at the headline shape (block 0 of the seeded signal)
+    blk0 = sig_d[:, :S].contiguous()
+    ms, = device_ms([(lambda: ev.detect_block(st0, blk0), 20)],
+                    tag="detect")
+    call_ms = time_ms(lambda: ev.detect_block(st0, blk0))
+    plain_ms = time_ms(lambda: ev.detect_block_plain(st0, blk0), reps=1,
+                       warm=0)
+    state_bytes = sum(v.element_size() * v.numel() for v in st0.values())
+    nbytes = B * S * (4 + 1 + 4 + 4 + 4 + 4) + 2 * state_bytes
+    # the serial bound: the scan's S dependent steps; the prefix sums are
+    # exact (checked above), so a log-depth scan gives their bits and their
+    # serial adds in the kernel are its design, not the function's work
+    scan_ns = scan_step_ns(dev)
+    serial_ms = S * scan_ns * 1e-6
+    byte_ms = nbytes / rate * 1e3
+    out["kernels"]["detect"] = dict(
+        KERNELS["detect"], launches=0, max_abs_err=0.0 if ok else None,
+        ms=ms, plain_ms=plain_ms, bound_ms=max(byte_ms, serial_ms),
+        bound_by="operations" if serial_ms > byte_ms else "bytes",
+        library_ms=None, call_ms=call_ms, byte_bound_ms=byte_ms,
+        serial_bound_ms=serial_ms, scan_step_ns=scan_ns, bytes=nbytes,
+        shape=f"B={B} S={S} (seeded pA signal)")
+    log("[2] detect: " + json.dumps(out["kernels"]["detect"]))
+    return ok
+
+
+def phase_realtime_small(out, refs, dev="cuda"):
+    """Phase 3's realtime cases on the card against the port's own CPU
+    results from the worker: chunk-ordered replay, the deplete sim loop,
+    BatchMapper with the device DSP, and dump_read's three files."""
+    from uncalled_tpu_torch.ops import _cuda
+
+    ok = True
+    res = out["realtime_small"] = {}
+    for name, fn, kernels in (
+            ("map_ordered", rt_map_ordered, DEFAULT_KERNELS),
+            ("sim", rt_sim, DEFAULT_KERNELS),
+            ("dsp_golden", rt_dsp_golden, ("detect",) + POOLED_KERNELS),
+            ("dump_read", rt_dump, CLASSIC_KERNELS)):
+        _cuda.reset_counts()
+        t0 = time.time()
+        got = fn(dev)
+        dt = time.time() - t0
+        counts = dict(_cuda.COUNTS)
+        want = refs.get(name)
+        eq = got == want
+        ran = all(counts[k] > 0 for k in kernels)
+        if name == "dsp_golden":
+            golden, _ = golden_signals()
+            n_gold = sum(got[r] == golden[r] for r in got)
+            out["kernels"]["detect"]["launches"] = counts["detect"]
+            extra = f", {n_gold}/{len(got)} equal to the golden lines"
+        elif name == "sim":
+            lines = [x for x in got[0] if not x.startswith("#")]
+            extra = (f", {len(lines)} lines, "
+                     f"{sum('ej:f:' in x for x in lines)} ejected, "
+                     f"{len(got[1])} give-ups")
+        elif name == "dump_read":
+            extra = f", {got[1]} seed rows, files " + ", ".join(
+                f"{k} {len(v)} B" for k, v in got[2].items())
+        else:
+            extra = f", {len(got)} lines"
+        log(f"[3] realtime/{name} on the card: "
+            f"{'equal to' if eq else 'DIFFERS from'} the port's CPU run"
+            f"{extra}; {dt:.1f} s; launches "
+            + json.dumps({k: v for k, v in counts.items() if v}))
+        res[name] = dict(equal=eq, kernels_ran=ran, seconds=dt,
+                         launches=counts)
+        ok &= eq and ran
+    return ok
+
+
+def phase_realtime(out, dev="cuda"):
+    """Realtime at 512 channels: bench_sim.py's configuration on phase 4's
+    genome and read generator (the first RT_READS reads dealt over the
+    channels by default_pattern, 288 pool slots a read, a SimClock with
+    RT_TICK s ticks, deplete), RT_SECS simulated seconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from uncalled_tpu_torch.config import Conf
+    from uncalled_tpu_torch.ops import _cuda
+    from uncalled_tpu_torch.ops import sortkern as sk
+    from uncalled_tpu_torch.ops._cuda import BUILD_DIR
+    from uncalled_tpu_torch.pafstats import PafEntry
+    from uncalled_tpu_torch.poremodel import load_default
+    from uncalled_tpu_torch.realtime.clientsim import ClientSim
+    from uncalled_tpu_torch.realtime.mapper import RealtimeMapper, _Channel
+    from uncalled_tpu_torch.realtime.sim import (SimClock, default_pattern,
+                                                 run_sim_loop)
+    from uncalled_tpu_torch.testing.simulate import simulate_reads
+
+    fmi, th, _ = real_assets()
+    t0 = time.time()
+    reads = simulate_reads(
+        os.path.join(BUILD_DIR, "smoke_assets", "rgen_4700000.fa"),
+        RT_READS, seed=123, read_len_bp=(1000, 4000), mismatch=True)
+    truth = {r.id: (r.ref_name, r.ref_start, r.ref_end, r.fwd) for r in reads}
+    conf = Conf()
+    conf.reads.num_channels = RT_CH
+    conf.simulator.sim_speed = 1.0
+    conf.engine.pool_slots_per_read = RT_SPR
+    clock = SimClock()
+    client = ClientSim(conf, clock=clock)
+    default_pattern(client, reads,
+                    int(conf.reads.sample_rate * (RT_SECS + 60)))
+    client.load_reads(reads)
+    rt = RealtimeMapper(fmi, load_default(), th, conf, device=dev)
+    p = rt.eng.params
+    log(f"[7] {len(reads)} reads simulated, mapper built in "
+        f"{time.time() - t0:.1f} s; shapes B={p.B} S={p.S} SC={p.SC} "
+        f"CL={p.CL} R={p.R} RT={p.RT} T={rt.T} sort_mode={p.sort_mode} "
+        f"handoff={p.handoff}")
+
+    # warm the advance path (bench_sim.py): one synthetic chunk through
+    # channel 1's active branch, then the channel reset
+    class _WarmChunk:
+        number, start, read_id = 0, 0, "warmup"
+        signal = np.random.RandomState(0).normal(90.0, 10.0, 4000).astype(
+            np.float32)
+
+    rt.add_chunks([(1, _WarmChunk())], 0.0)
+    rt.update(0.0)
+    rt.channels[0] = _Channel()
+    mask0 = np.zeros(RT_CH, bool)
+    mask0[0] = True
+    rt.state = rt.eng.reset_slots(rt.state, mask0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the timed window: run_sim_loop alone, each update's wall time kept
+    upd, adv = [], []
+    orig_update, orig_advance = rt.update, rt.eng.advance
+
+    def advance(*a, **k):
+        adv.append(1)
+        return orig_advance(*a, **k)
+
+    def update(now):
+        n_adv = len(adv)
+        t = time.perf_counter()
+        r = orig_update(now)
+        upd.append(((time.perf_counter() - t) * 1e3, len(adv) > n_adv))
+        return r
+
+    rt.eng.advance, rt.update = advance, update
+    _cuda.reset_counts()
+    buf = io.StringIO()
+    t0 = time.time()
+    run_sim_loop(client, rt, conf, deplete=True, sleep=RT_TICK, clock=clock,
+                 out=buf, duration=RT_SECS / 3600.0)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = dict(_cuda.COUNTS)
+    sim_s = client.get_runtime()
+    n_adv = len(adv)
+    peak = torch.cuda.max_memory_allocated()  # the window's, not the checks'
+    rt.eng.advance, rt.update = orig_advance, orig_update
+
+    # past the timed window, on the live state: the kernels' inputs from
+    # the next updates (one whole NP=262144 sort, every level), re-checked
+    # against their plain versions below, then one update traced by
+    # torch.profiler
+    def tick():
+        n_adv = len(adv)
+        rt.update(clock())  # decisions past the window are not counted
+        rt.add_chunks(client.get_read_chunks(), clock())
+        clock.advance(RT_TICK)
+        return len(adv) > n_adv
+
+    rt.eng.advance = advance
+    NP = 1 << (p.SC - 1).bit_length()  # 262144
+    levels = (NP // min(sk.RUN_TILE, NP)).bit_length() - 1
+    limits = dict(tracker_fold=2, ring_assemble=2, pair_counts=2,
+                  flat_gather=9, sort_runs=1, merge_level=levels)
+    with capture_pooled(limits, NP=NP) as captured:
+        for _ in range(10):
+            tick()
+            if all(len(captured[k]) == n for k, n in limits.items()):
+                break
+    traced = {}
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            advanced = tick()
+            torch.cuda.synchronize()
+        if advanced:
+            traced = dict(wall_ms=(time.perf_counter() - t) * 1e3, prof=prof)
+            break
+    rt.eng.advance = orig_advance
+    cap_ok = recheck_captured(captured, 7)
+
+    tags = {"ej": [], "kp": [], "mx": [], "en": []}
+    n_lines = n_bad = n_mapped = n_true = 0
+    for line in buf.getvalue().splitlines():
+        if line.startswith("#"):
+            continue
+        n_lines += 1
+        try:
+            pe = PafEntry(line)
+            for t in tags:
+                v = pe.get_tag(t)
+                if v is not None:
+                    tags[t].append(float(v))
+            if pe.is_mapped:
+                n_mapped += 1
+                name, st, en, fwd = truth[pe.qr_name]
+                n_true += (pe.rf_name == name and st - 500 <= pe.rf_st
+                           <= en + 500 and pe.is_fwd == fwd)
+        except Exception:  # noqa: BLE001 - a line that does not parse
+            n_bad += 1
+
+    def pct(a):
+        return ([float(np.percentile(a, q)) for q in (50, 90, 99)]
+                if a else None)
+
+    active = [ms for ms, a in upd if a]
+    prof_info = {}
+    if traced:
+        evs = trace_events(traced["prof"], "realtime_update")
+        kern = [e for e in evs if e.get("cat") == "kernel"]
+        dev_ms = sum(float(e.get("dur", 0)) for e in evs) / 1e3
+        med = float(np.median(active)) if active else None
+        prof_info = dict(
+            traced_wall_ms=traced["wall_ms"],
+            device_ms=dev_ms, device_ms_per_step=dev_ms / rt.T,
+            kernels_per_step=len(kern) / rt.T,
+            idle_share=1.0 - dev_ms / med if med else None,
+            idle_share_traced=1.0 - dev_ms / traced["wall_ms"])
+    real = dict(
+        channels=RT_CH, reads=len(reads), sim_seconds=sim_s,
+        wall_seconds=wall, realtime_factor=sim_s / wall,
+        decisions=n_lines, unparsed=n_bad,
+        n_ej=len(tags["ej"]), n_kp=len(tags["kp"]), n_mx=len(tags["mx"]),
+        n_en=len(tags["en"]), n_giveup=len(rt.giveups),
+        n_giveup_ovf=sum(1 for g in rt.giveups if g[1]),
+        eject_latency_s_p50_p90_p99=pct(tags["ej"]),
+        mapped=n_mapped, truth_frac=n_true / max(n_mapped, 1),
+        updates=len(upd), advances=n_adv,
+        wall_ms_per_update=float(np.mean([m for m, _ in upd])) if upd
+        else None,
+        wall_ms_per_active_update_p50=float(np.median(active)) if active
+        else None,
+        wall_ms_per_step=(float(np.median(active)) / rt.T) if active
+        else None,
+        profiled_update=prof_info,
+        max_memory_allocated=peak,
+        pool_hw=[int(x) for x in rt.state["dm_pool"].cpu().numpy()],
+        pool_cap=[p.SC, p.SC, p.S, p.RE, p.RT],
+        launches=counts,
+        launches_per_step={k: v / max(n_adv * rt.T, 1)
+                           for k, v in counts.items() if v},
+    )
+    out["realtime"] = real
+    log("[7] realtime: " + json.dumps(real))
+    ran = all(counts[k] > 0 for k in DEFAULT_KERNELS)
+    ok = (n_bad == 0 and n_lines > 0 and n_mapped > 0 and ran and cap_ok
+          and bool(traced) and real["truth_frac"] >= RT_TRUTH_MIN)
+    log(f"[7] gates: lines parse {n_bad == 0}, decisions {n_lines} > 0, "
+        f"kernels of the path launched {ran}, captured calls bit-equal to "
+        f"the plain versions {cap_ok}, an update traced {bool(traced)}, "
+        f"truth fraction {real['truth_frac']:.4f} >= {RT_TRUTH_MIN}: "
+        f"{'ok' if ok else 'FAILED'}")
     return ok
 
 
@@ -2458,7 +3212,9 @@ def profile_block(bm, reads):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7")
+    # internal: the CPU reference worker (started by the main process)
+    ap.add_argument("--cpu-refs", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     try:
@@ -2466,6 +3222,9 @@ def main(argv=None) -> int:
     except ImportError:
         print("chip_smoke: torch is not installed", file=sys.stderr)
         return 2
+    if args.cpu_refs:
+        sys.path.insert(0, REPO)
+        return cpu_refs_worker(args.cpu_refs)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -2481,20 +3240,39 @@ def main(argv=None) -> int:
 
     out = {"kernels": {}, "phase_seconds": {}}
     ok = True
-    t0 = time.time()
-    phase_card(out)
-    rate = hbm_rate(out["card"])
-    out["phase_seconds"][1] = time.time() - t0
-    for n, run in ((2, lambda: phase_kernels(out, rate)),
-                   (3, lambda: phase_golden(out)),
-                   (4, lambda: phase_real(out, rate)),
-                   (5, lambda: phase_classic(out)),
-                   (6, lambda: phase_defaults(out))):
-        if n in phases:
-            t0 = time.time()
-            ok &= run()
-            out["phase_seconds"][n] = time.time() - t0
-            log(f"[{n}] phase {n} took {out['phase_seconds'][n]:.1f} s")
+    # the realtime checks' CPU references run in a worker process beside
+    # phases 1-3
+    refs = CpuRefs() if phases & {2, 3} else None
+    try:
+        t0 = time.time()
+        phase_card(out)
+        rate = hbm_rate(out["card"])
+        dev = torch.device("cuda")
+        out["phase_seconds"][1] = time.time() - t0
+        for n, run in (
+                (2, lambda: phase_kernels(out, rate)
+                 & phase_detect(out, rate, dev, refs)),
+                (3, lambda: phase_golden(out)
+                 & phase_realtime_small(out, refs)),
+                (4, lambda: phase_real(out, rate)),
+                (5, lambda: phase_classic(out)),
+                (6, lambda: phase_defaults(out)),
+                (7, lambda: phase_realtime(out))):
+            if n in phases:
+                t0 = time.time()
+                try:
+                    ok &= bool(run())
+                except Exception:  # noqa: BLE001 - the verdict fails below
+                    import traceback
+
+                    log(f"[{n}] phase {n} raised:\n"
+                        + traceback.format_exc())
+                    ok = False
+                out["phase_seconds"][n] = time.time() - t0
+                log(f"[{n}] phase {n} took {out['phase_seconds'][n]:.1f} s")
+    finally:
+        if refs is not None:
+            refs.stop()
     from uncalled_tpu_torch.ops._cuda import BUILD_DIR
 
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -2503,7 +3281,7 @@ def main(argv=None) -> int:
     print(out["card"])
     print(json.dumps({"kernels": [dict(name=k, **v)
                                   for k, v in out["kernels"].items()]}))
-    if not ok or phases != {1, 2, 3, 4, 5, 6}:
+    if not ok or phases != {1, 2, 3, 4, 5, 6, 7}:
         log("chip_smoke: FAILED" if not ok else "chip_smoke: partial run")
         return 1
     print(json.dumps({"ok": True, "device": {

@@ -157,6 +157,9 @@ def test_classic_step_matches_jax_every_event(rids, budgets, NE, refill_at):
             assert (got["ovf_why"] & bit).any(), bit
         _eq_state(got, te.advance_block(tidx, tpp, ts0, _t(means), _t(on)),
                   "advance_block")
-    with pytest.raises(NotImplementedError):
-        te.advance_block(tidx, tpp, ts, _t(means[:, :1]), _t(on[:, :1]),
-                         debug=True)
+    # the debug taps ride the same step: (state, taps [T, B, ...])
+    st_dbg, dbg = te.advance_block(tidx, tpp, ts, _t(means[:, :1]),
+                                   _t(on[:, :1]), debug=True)
+    _eq_state(state_to_numpy(te.advance_block(
+        tidx, tpp, ts, _t(means[:, :1]), _t(on[:, :1]))), st_dbg, "debug")
+    assert dbg["seed_ref_en"].shape == (1, B, tpp.R)

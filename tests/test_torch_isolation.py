@@ -128,7 +128,8 @@ def test_chip_smoke_refuses_without_card_or_checkout(tmp_path, alone):
 def test_unported_options_raise():
     """The conf defaults construct (slot handoff, drain chain, the bitonic
     sort), and so do both engines in sampled-SA mode (the 1/32 sample on
-    the device, no full SA); only the device event detector raises."""
+    the device, no full SA) and the mapper with the device event detector:
+    no option of the batch mapper raises any more."""
     from uncalled_tpu_torch.config import Conf
     from uncalled_tpu_torch.index.bwa_compat import load_bwa_index
     from uncalled_tpu_torch.mapping.batch import BatchMapper
@@ -154,5 +155,5 @@ def test_unported_options_raise():
         assert "sa_samp" in eng.idx and "sa" not in eng.idx
         assert eng.idx["sa_samp"].shape == ((fmi.n + 32) // 32,)
     conf.engine.device_dsp = True
-    with pytest.raises(NotImplementedError, match="device_dsp"):
-        BatchMapper(fmi, model, th, conf, device="cpu")
+    bm = BatchMapper(fmi, model, th, conf, device="cpu")
+    assert bm.conf.engine.device_dsp and hasattr(bm, "_prepare_wave")

@@ -302,7 +302,9 @@ def sk_passes(launch):
     return passes(launch)
 
 
-@pytest.mark.parametrize("NP", [8192, 16384, 32768, 131072])
+# NP = 262144: the realtime engine at 512 channels (SC = 184320 at 288
+# pool slots a read, 245760 at the default 384)
+@pytest.mark.parametrize("NP", [8192, 16384, 32768, 131072, 262144])
 @pytest.mark.parametrize("tile", [256, 512, 1024, 2048, 4096, 8192])
 def test_schedule_runs_the_network(NP, tile):
     """For every run width and fused-stride count: the launches cover each
@@ -388,7 +390,7 @@ def stand_in(monkeypatch):
     return calls
 
 
-@pytest.mark.parametrize("n", [5000, 122880])
+@pytest.mark.parametrize("n", [5000, 122880, 184320])
 def test_card_sort_launches_only_the_network(stand_in, n):
     """Off the CPU the bitonic sort is the run sort and one merge level a
     level to stride 1, on one buffer: the launches are sort_schedule's."""

@@ -20,8 +20,9 @@ slot whose read decides mid-block switches to it on the device.  The
 straggler drain chain (``drain_shrink``): once the input is spent and
 few reads remain, they continue on a mapper B/``drain_div`` wide, by
 state migration between pooled engines and by restart on the classic
-entry; drains chain.  ``conf.engine.device_dsp`` raises (the device
-event detector is not ported).
+entry; drains chain.  With ``conf.engine.device_dsp`` a refill wave's
+event detection runs on the card (``ops.events.detect_block``, one
+kernel launch a signal block for the whole wave).
 """
 
 from __future__ import annotations
@@ -75,12 +76,6 @@ class BatchMapper:
                  **over):
         self.conf = conf or Conf()
         en = self.conf.engine
-        if en.device_dsp:
-            raise NotImplementedError(
-                "conf.engine.device_dsp: the device event detector is not "
-                "ported yet (its f32 block sums differ from the host "
-                "detector's in the last ulps, so the results would too)"
-            )
         if engine is None:
             if en.pooled and _rung == 0:
                 # drop classic per-read budget knobs the pool doesn't have
@@ -303,6 +298,55 @@ class BatchMapper:
         return paf
 
 
+    def _prepare_wave(self, reads) -> list:
+        """Event detection for a refill wave on the engine's device
+        (``conf.engine.device_dsp``): one ``detect_block`` stream of
+        ``signal_block`` samples over all the wave's reads at once, then
+        the mean filter and normalization on the host.  The detector equals
+        the JAX ``detect_block`` bit for bit (ops/events.py), which is not
+        the host detector's f64 arithmetic, so this mode's lines are the
+        JAX mode's, not the reference's byte for byte."""
+        from ..ops.events import detect_block, make_detector_state
+
+        sb = self.conf.engine.signal_block
+        dev = self.eng.device
+        Bw = len(reads)
+        L = max(r.raw_len for r in reads)
+        nb = max(-(-L // sb), 1)
+        sigs = np.zeros((Bw, nb * sb), np.float32)
+        for i, r in enumerate(reads):
+            sigs[i, : r.raw_len] = r.signal
+        sig_d = torch.from_numpy(sigs).to(dev)
+        state = make_detector_state(Bw, dev)
+        means = [[] for _ in reads]
+        lens = [[] for _ in reads]
+        ed = self.conf.event_detector
+        for b in range(nb):
+            state, out = detect_block(
+                state, sig_d[:, b * sb: (b + 1) * sb].contiguous())
+            fired = out["fired"].cpu().numpy()
+            m = out["mean"].cpu().numpy()
+            ln = out["length"].cpu().numpy()
+            st = out["start"].cpu().numpy()
+            for i, r in enumerate(reads):
+                # drop events born in the zero padding past the signal
+                keep = fired[i] & (st[i] < r.raw_len)
+                means[i].append(m[i][keep])
+                lens[i].append(ln[i][keep])
+        slots = []
+        cap = self.conf.mapper.max_events
+        for i, r in enumerate(reads):
+            mm = np.concatenate(means[i]) if means[i] else np.zeros(0, F32)
+            ll = np.concatenate(lens[i]) if lens[i] else np.zeros(0, F32)
+            mask = (mm >= ed.min_mean) & (mm <= ed.max_mean)
+            mm, ll = mm[mask], ll[mask]
+            mel = F32(ll.sum()) / F32(len(ll)) if len(ll) else F32(0)
+            norm, _, _ = normalize_events(
+                mm, self.model.means_mean, self.model.means_stdv)
+            slots.append(
+                _Slot(read=r, means=norm[:cap], fed=0, mean_evt_len=mel))
+        return slots
+
     def _prepare_many(self, reads) -> list:
         """_prepare over a refill wave; more than 3 reads go to host
         threads (the native detector is a ctypes call that releases the
@@ -429,8 +473,12 @@ class BatchMapper:
                         break
             if incoming:
                 now = time.time()
-                for (b, _), s in zip(
-                        incoming, self._prepare_many([r for _, r in incoming])):
+                reads = [r for _, r in incoming]
+                if self.conf.engine.device_dsp and len(reads) > 1:
+                    prepped = self._prepare_wave(reads)
+                else:
+                    prepped = self._prepare_many(reads)
+                for (b, _), s in zip(incoming, prepped):
                     s.t_start = now
                     slots[b] = s
                     mask[b] = True

@@ -566,7 +566,7 @@ def _path_seedprob(p: EngineParams, st):
 # per-event step (the batched map_next, mapper.cpp:433-663)
 # ---------------------------------------------------------------------------
 
-def _event_step(idx, p: EngineParams, st, ev, ev_on):
+def _event_step(idx, p: EngineParams, st, ev, ev_on, debug=False):
     from ..ops.tracker_kernel import tracker_run
 
     dev = ev.device
@@ -892,19 +892,49 @@ def _event_step(idx, p: EngineParams, st, ev, ev_on):
     out["success"] = st["success"] | dec
     out["dec_evt"] = torch.where(dec, st["evt_i"], st["dec_evt"])
     out["evt_i"] = st["evt_i"] + alive.to(I32)
-    return out
+    if not debug:
+        return out
+    # the per-event debug taps (debug.py), computed only when asked: every
+    # seed row the tracker saw, and the path-DAG snapshot for the _paths.tsv
+    # dump (mapper.cpp:1016-1078): parent slot in the PREVIOUS table (P = no
+    # parent / source) and each path's newest match prob
+    (c_prob,) = row_gather_cols([prob], ci)
+    dbg = {
+        "seed_ref_en": torch.where(row_ok, ref_en, -1),
+        "seed_mc": row_mc,
+        "seed_evt": row_evt,
+        "seed_rows": total_rows,
+        "n_paths": (new_paths["p_total"] > 0).sum(1, dtype=I32),
+        "n_cand": cvalid.sum(1, dtype=I32),
+        "dec": dec,
+        "p_parent": torch.where(as_child, c_par, P),
+        "p_prob": torch.where(as_child, c_prob,
+                              torch.where(src_okj, s_prob, 0.0)),
+        "p_fm_start": new_paths["p_start"],
+        "p_fm_len": new_paths["p_end"] - new_paths["p_start"] + 1,
+        "p_kmer": new_paths["p_kmer"],
+        "p_total": new_paths["p_total"],
+        "p_moves": new_paths["p_moves"],
+    }
+    return out, dbg
 
 
 def advance_block(idx, p: EngineParams, state, means, on, debug=False):
     """Advance all read slots through T events: means/on are [B, T]; on[b, t]
-    marks a real event for slot b at step t."""
-    if debug:
-        raise NotImplementedError(
-            "the per-event debug taps (debug.py) are not ported yet"
-        )
+    marks a real event for slot b at step t.  With ``debug`` returns
+    (state, dbg), each debug tap stacked [T, B, ...]."""
+    if not debug:
+        for t in range(means.shape[1]):
+            state = _event_step(idx, p, state, means[:, t], on[:, t])
+        return state
+    taps = []
     for t in range(means.shape[1]):
-        state = _event_step(idx, p, state, means[:, t], on[:, t])
-    return state
+        state, dbg = _event_step(idx, p, state, means[:, t], on[:, t],
+                                 debug=True)
+        taps.append(dbg)
+    if not taps:
+        return state, {}
+    return state, {k: torch.stack([d[k] for d in taps]) for k in taps[0]}
 
 
 class MapEngine:

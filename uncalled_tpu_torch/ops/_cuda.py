@@ -46,9 +46,11 @@ _FUNCS = {
     "row_gather_cols_i32": ("row_gather", "qpp"),
     "sort_net_i32": ("sortkern", "aiipiqi"),
     "sa_lookup_i32": ("sa_lookup", "pppppiiii"),
+    "detect_block_f32": ("detect", "aii"),
     # measurement probes (chip_smoke.py), no kernel of the mapper
     "probe_empty": ("probe", "iii"),
     "probe_chase": ("probe", "pip"),
+    "probe_detect_chain": ("detect", "ip"),
 }
 
 COUNTS = {
@@ -66,6 +68,7 @@ COUNTS = {
     "merge_level": 0,
     "sort_runs": 0,
     "sa_lookup": 0,
+    "detect": 0,
 }
 
 _libs: dict = {}

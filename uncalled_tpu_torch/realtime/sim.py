@@ -1,0 +1,145 @@
+"""Simulated ReadUntil run (reference scripts/uncalled:160-291).
+
+Drives ClientSim + RealtimeMapper with the reference's per-read decision
+rule: ended -> stop_receiving (en tag); (mapped XOR deplete) -> unblock if
+ejectable else stop in-scan (ej/dl or mx tags); otherwise keep ->
+stop_receiving (kp tag). Ejected reads are deduped per channel via the last
+unblocked number.
+
+Patterns come from `<prefix>_itvs/_gaps/_delays/_reads.txt` files (the
+reference ClientSim::load_from_files format, client_sim.cpp:44-66) or, if
+absent, a default full-run interval per channel with reads dealt round-robin.
+The CLI entry that reads fast5 files (the JAX package's ``run_sim``) waits
+for the port's file input.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+from ..config import Conf
+from .clientsim import ClientSim
+
+
+class SimClock:
+    """Deterministic controllable clock for tests (monotonic seconds)."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+    def advance(self, dt: float):
+        self.t += dt
+
+
+def load_pattern_files(client: ClientSim, prefix: str) -> bool:
+    """ClientSim::load_from_files equivalent; returns False if absent."""
+    paths = {k: f"{prefix}_{k}.txt" for k in ("itvs", "gaps", "delays", "reads")}
+    if not all(os.path.exists(p) for p in paths.values()):
+        return False
+    with open(paths["itvs"]) as f:
+        for line in f:
+            ch, i, st, en = line.split()
+            client.add_intv(int(ch), int(i), int(st), int(en))
+    with open(paths["gaps"]) as f:
+        for line in f:
+            ch, i, ln = line.split()
+            client.add_gap(int(ch), int(i), int(ln))
+    with open(paths["delays"]) as f:
+        for line in f:
+            ch, i, ln = line.split()
+            client.add_delay(int(ch), int(i), int(ln))
+    read_assign = []
+    with open(paths["reads"]) as f:
+        for line in f:
+            ch, rd, offs = line.split()
+            client.add_read(int(ch), rd, int(offs))
+            read_assign.append(rd)
+    return True
+
+
+def default_pattern(client: ClientSim, reads, duration_samples: int,
+                    gap: int = 4000, delay: int = 400):
+    """No pattern files: every channel active for the whole run, reads dealt
+    round-robin with a fixed inter-read gap and ejection delay."""
+    n_ch = len(client.channels)
+    used = set()
+    for i, r in enumerate(reads):
+        ch = (i % n_ch) + 1
+        client.add_intv(ch, 0, 0, duration_samples)
+        client.add_gap(ch, 0, gap)
+        client.add_delay(ch, 0, delay)
+        if ch not in used:
+            used.add(ch)
+        client.add_read(ch, r.id, 0)
+
+
+def run_sim_loop(client: ClientSim, rt, conf: Conf, deplete: bool,
+                 even: bool = False, odd: bool = False, duration: float = 0.0,
+                 out=None, sleep=0.01, clock=None, max_wall: float = 0.0):
+    """The shared realtime/sim decision loop. Returns emitted Paf count."""
+    out = out or sys.stdout
+    clock = clock or time.monotonic
+    n_ch = len(client.channels)
+    chunk_times = [clock() for _ in range(n_ch)]
+    unblocked = [None] * n_ch
+    end_time = duration * 60 * 60 if duration else float("inf")
+    t_start = clock()
+    n_out = 0
+
+    client.run()
+    while client.is_running():
+        t0 = clock()
+        now = clock()
+        for ch, nm, paf in rt.update(now):
+            t = now - chunk_times[ch - 1]
+            if paf.ended:
+                paf.set_float("en", t)
+                client.stop_receiving_read(ch, nm)
+            elif (paf.is_mapped and deplete) or not (paf.is_mapped or deplete):
+                if client.should_eject():
+                    paf.set_float("ej", t)
+                    u = client.unblock_read(ch, nm)
+                    if u is not None:
+                        # sim only: the reference stamps dl just for the
+                        # simulator (scripts/uncalled:228-233); the live
+                        # client's unblock has no delay to report
+                        paf.set_int("dl", u)
+                    unblocked[ch - 1] = nm
+                else:
+                    paf.set_float("mx", t)
+                    client.stop_receiving_read(ch, nm)
+            else:
+                paf.set_float("kp", t)
+                client.stop_receiving_read(ch, nm)
+            out.write(paf.to_line() + "\n")
+            n_out += 1
+
+        batch = []
+        for channel, chunk in client.get_read_chunks():
+            if (even and channel % 2 == 1) or (odd and channel % 2 == 0):
+                client.stop_receiving_read(channel, chunk.number)
+                continue
+            if unblocked[channel - 1] == chunk.number:
+                out.write(f"# received chunk from {chunk.read_id} after unblocking\n")
+                continue
+            chunk_times[channel - 1] = clock()
+            batch.append((channel, chunk))
+        if batch:
+            rt.add_chunks(batch, clock())
+
+        if client.get_runtime() >= end_time:
+            break
+        if max_wall and clock() - t_start > max_wall:
+            break
+        if hasattr(clock, "advance"):
+            clock.advance(sleep or 0.01)  # deterministic test clock
+        else:
+            dt = clock() - t0
+            if sleep and dt < sleep:
+                time.sleep(sleep - dt)
+    return n_out
