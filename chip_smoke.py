@@ -60,7 +60,7 @@ verdict, printed only when every phase passed):
    realtime cases on the card, each equal to the port's own result with
    ``device="cpu"`` from the worker (timing tags stripped):
    ``map_ordered`` (chunk-ordered replay), the deplete ``run_sim_loop``
-   case of tests/test_realtime.py (4 channels, 6 reads, cut to 20
+   case of tests/test_realtime.py (4 channels, 6 reads, cut to 10
    simulated seconds), ``BatchMapper`` with ``device_dsp`` on the 13
    golden reads that decide (the detector's launches on this path are the
    kernels line's), and ``dump_read``'s three files;
@@ -79,7 +79,7 @@ verdict, printed only when every phase passed):
    step, the SA's and the index's device bytes, live lookups re-checked;
 5. classic at real size: the same genome and reads, ``pooled = False`` at
    the conf defaults (B=64, P=1024, C=1024, CE=1280, R=256, CL=1024, T=64
-   and the default remap ladder), 8 warm-up + 128 timed reads, with the
+   and the default remap ladder), 8 warm-up + 64 timed reads, with the
    same measures plus reads per ladder rung and a profiled block on every
    rung that ran, and the same re-check of captured kernel inputs; every
    read is yielded;
@@ -102,9 +102,26 @@ verdict, printed only when every phase passed):
    sort among them) are captured and re-checked against the plain
    versions bit for bit, and one update is traced (device ms, idle share,
    kernels per step);
+8. the command line (``uncalled_tpu_torch.__main__.main``, in-process),
+   its fast5 input through a stand-in for ``io.fast5.load_fast5`` (an
+   .npz of int16 raw data and attributes, calibrated by the port's own
+   ``_calibrate``, on every machine: the card's PyTorch installation
+   has no h5py):
+   ``index`` on the example FASTA (the .uncl byte-identical to the
+   in-repo one); on the 13 golden reads that decide, quantized to int16
+   and dealt over 4 channels, ``map`` at the CLI's defaults (pooled,
+   B=64, the conf defaults), ``map --ord`` and ``map --engine-pooled
+   false`` on 4 reads, and ``sim`` on a 4-channel ``--conf`` for 10
+   simulated seconds under a SimClock, each equal to the port's own
+   ``--device cpu`` run from the worker and each launching its kernels;
+   then ``map`` at the CLI's defaults on phase 4's genome (index and
+   thresholds saved under one prefix) and 128 of its reads: reads/s from
+   the first fast5 read to the last PAF line, ms per event step, mapped
+   and correct fractions (every read yielded, mapped >= 0.95), peak
+   device memory;
 
 then the ``{"kernels": [...]}`` line and the verdict.  The CPU references
-of the realtime checks run in a worker process (this script with
+of the realtime and CLI checks run in a worker process (this script with
 ``--cpu-refs``, no card) beside phases 1-3, and end with the run.
 
 Imports nothing of JAX.  Exits non-zero without a CUDA card, or when run
@@ -136,8 +153,8 @@ SC_FULL = S_FULL + S_FULL // 4  # 122880
 RT_FULL = 24 * B_FULL  # 6144
 RING = 23
 # timed reads of phases 4 (and 6) and 5 (phase 5 cut from 256 to 128 to
-# make room for phase 7 in the time limit)
-N_POOLED, N_CLASSIC = 512, 128
+# make room for phase 7 in the time limit, and to 64 for phase 8)
+N_POOLED, N_CLASSIC = 512, 64
 N_SAMPLED = 256  # phase 4's sampled-SA run: the first of its timed reads
 POOLED_KERNELS = ("flat_gather", "pair_counts", "ring_assemble",
                   "tracker_fold")
@@ -184,8 +201,9 @@ KERNELS = {
 # the device event detector (phase 2 at B=512, S=4096 over three blocks)
 DET_B, DET_S, DET_NB = 512, 4096, 3
 # phase 3's realtime cases: simulated seconds of the deplete sim case (the
-# JAX test runs 120; its six reads cycle), events in the debug dump
-SIM3_SECS, DUMP_EVENTS = 20.0, 256
+# JAX test runs 120; its six reads cycle; cut from 20 to 10 for phase 8),
+# events in the debug dump
+SIM3_SECS, DUMP_EVENTS = 10.0, 256
 # phase 7, bench_sim.py's configuration cut from 30 to 10 simulated
 # seconds: channels, pool slots a read, reads dealt, seconds, tick, and the
 # truth-rule gate on the mapped decisions
@@ -1821,16 +1839,21 @@ _ASSETS: dict = {}
 def real_assets():
     """Phase 4's genome, index, thresholds and reads, built once."""
     if not _ASSETS:
-        from uncalled_tpu_torch.ops._cuda import BUILD_DIR
-
-        _ASSETS["v"] = build_assets(os.path.join(BUILD_DIR, "smoke_assets"))
+        _ASSETS["v"] = build_assets(assets_prefix())
     return _ASSETS["v"]
 
 
-def build_assets(work):
+def assets_prefix():
+    """Where phase 4's genome (.fa) and thresholds (.uncl) are written."""
+    from uncalled_tpu_torch.ops._cuda import BUILD_DIR
+
+    return os.path.join(BUILD_DIR, "smoke_assets", "rgen_4700000")
+
+
+def build_assets(prefix):
     """The 4.7 Mb genome (seed 42), its index and thresholds, and 8 + 512
     mismatched simulated reads (seed 123), built from the port's copies
-    (phase 5 maps the first 8 + 128 of the same reads)."""
+    (phase 5 maps the first 8 + 64 of the same reads)."""
     from uncalled_tpu_torch.index.build import build_index
     from uncalled_tpu_torch.index.parameterize import build_uncl
     from uncalled_tpu_torch.mapping.thresholds import load_uncl
@@ -1839,8 +1862,7 @@ def build_assets(work):
         simulate_reads,
     )
 
-    os.makedirs(work, exist_ok=True)
-    prefix = os.path.join(work, "rgen_4700000")
+    os.makedirs(os.path.dirname(prefix), exist_ok=True)
     t0 = time.time()
     seq = realistic_genome(4_700_000, seed=42)
     with open(prefix + ".fa", "w") as f:
@@ -2689,7 +2711,8 @@ CPU_REFS = (("detect_golden", detect_golden_plain),
             ("dump_read", lambda: rt_dump("cpu")),
             ("map_ordered", lambda: rt_map_ordered("cpu")),
             ("dsp_golden", lambda: rt_dsp_golden("cpu")),
-            ("sim", lambda: rt_sim("cpu")))
+            ("sim", lambda: rt_sim("cpu")),
+            ("cli", lambda: cli_small("cpu")))
 
 
 def cpu_refs_worker(path):
@@ -2961,7 +2984,6 @@ def phase_realtime(out, dev="cuda"):
     from uncalled_tpu_torch.config import Conf
     from uncalled_tpu_torch.ops import _cuda
     from uncalled_tpu_torch.ops import sortkern as sk
-    from uncalled_tpu_torch.ops._cuda import BUILD_DIR
     from uncalled_tpu_torch.pafstats import PafEntry
     from uncalled_tpu_torch.poremodel import load_default
     from uncalled_tpu_torch.realtime.clientsim import ClientSim
@@ -2972,9 +2994,8 @@ def phase_realtime(out, dev="cuda"):
 
     fmi, th, _ = real_assets()
     t0 = time.time()
-    reads = simulate_reads(
-        os.path.join(BUILD_DIR, "smoke_assets", "rgen_4700000.fa"),
-        RT_READS, seed=123, read_len_bp=(1000, 4000), mismatch=True)
+    reads = simulate_reads(assets_prefix() + ".fa", RT_READS, seed=123,
+                           read_len_bp=(1000, 4000), mismatch=True)
     truth = {r.id: (r.ref_name, r.ref_start, r.ref_end, r.fwd) for r in reads}
     conf = Conf()
     conf.reads.num_channels = RT_CH
@@ -3146,6 +3167,265 @@ def phase_realtime(out, dev="cuda"):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# the command line (phase 8)
+# ---------------------------------------------------------------------------
+
+# phase 8's golden-derived runs: channels the reads are dealt over, reads of
+# the --ord and classic runs, simulated seconds of the sim run; reads of the
+# real-size run
+CLI_CH, CLI_SMALL, CLI_SIM_SECS = 4, 4, 10.0
+CLI_N = 128
+
+
+def write_fast5_npz(path, reads, n_ch):
+    """The stand-in for a multi-read fast5 file, one .npz written under the
+    .fast5 name: each signal quantized to int16 as a MinION stores it
+    (digitisation 8192, range 1402, offset 0), the reads dealt over
+    ``n_ch`` channels in turn, with read numbers and start times."""
+    raws = [np.clip(np.rint(np.asarray(s, np.float32) * (8192.0 / 1402.0)),
+                    -32768, 32767).astype(np.int16) for _, s in reads]
+    i = np.arange(len(reads))
+    with open(path, "wb") as f:
+        np.savez(f, read_id=np.array([r for r, _ in reads]),
+                 channel=i % n_ch + 1, number=i + 1,
+                 start_time=4000 * (i // n_ch) + 1,
+                 digitisation=np.full(len(i), 8192.0),
+                 range=np.full(len(i), 1402.0), offset=np.zeros(len(i)),
+                 raw=np.concatenate(raws),
+                 raw_len=np.array([len(r) for r in raws]))
+
+
+def load_fast5_npz(path):
+    """``io.fast5.load_fast5``'s stand-in: the reads of a write_fast5_npz
+    file, calibrated by the port's own ``io.fast5._calibrate`` (its u16
+    wrap included), with the field types the multi-read loader gives."""
+    from uncalled_tpu_torch.io.fast5 import Read, _calibrate
+
+    with np.load(path) as z:
+        ends = np.cumsum(z["raw_len"])
+        return [Read(id=str(z["read_id"][i]), channel=int(z["channel"][i]),
+                     number=int(z["number"][i]),
+                     start_sample=int(z["start_time"][i]),
+                     signal=_calibrate(z["raw"][e - z["raw_len"][i]: e],
+                                       float(z["digitisation"][i]),
+                                       float(z["offset"][i]),
+                                       float(z["range"][i])))
+                for i, e in enumerate(ends)]
+
+
+class _Stamped(io.StringIO):
+    """A stdout that records when each of its lines was written."""
+
+    def __init__(self):
+        super().__init__()
+        self.stamps = []
+
+    def write(self, s):
+        self.stamps += [time.perf_counter()] * s.count("\n")
+        return super().write(s)
+
+
+def run_cli(argv, sim_clock=False):
+    """One in-process call of the port's ``main(argv)``, its fast5 input
+    read through load_fast5_npz (and, with ``sim_clock``, one SimClock as
+    ``time.monotonic`` for the call): (stdout lines, stderr, the time of
+    the first file read, the time of each stdout line)."""
+    from uncalled_tpu_torch.__main__ import main
+    from uncalled_tpu_torch.io import fast5
+    from uncalled_tpu_torch.realtime.sim import SimClock
+
+    first = []
+
+    def load(path):
+        first.append(time.perf_counter())
+        return load_fast5_npz(path)
+
+    out, err = _Stamped(), io.StringIO()
+    orig = fast5.load_fast5, time.monotonic
+    fast5.load_fast5 = load
+    if sim_clock:
+        time.monotonic = SimClock()
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            main(argv)
+    finally:
+        fast5.load_fast5, time.monotonic = orig
+    return out.getvalue().splitlines(), err.getvalue(), first[:1], out.stamps
+
+
+def cli_inputs(device):
+    """Phase 8's small inputs, written for the process that asks (the
+    card's or the CPU worker's): the example index prefix, the stand-in
+    fast5 of the golden reads that decide, and a --conf file for
+    CLI_CH channels."""
+    from uncalled_tpu_torch.ops._cuda import BUILD_DIR
+
+    d = os.path.join(BUILD_DIR, f"cli_{device}")
+    os.makedirs(d, exist_ok=True)
+    golden, sigs = golden_signals()
+    f5 = os.path.join(d, "golden.fast5")
+    write_fast5_npz(f5, [(r, sigs[r]) for r in golden if r != "noise_1"],
+                    CLI_CH)
+    conf = os.path.join(d, f"ch{CLI_CH}.toml")
+    with open(conf, "w") as f:
+        f.write(f"[reads]\nnum_channels = {CLI_CH}\n")
+    return example_assets()[3], f5, conf
+
+
+def cli_small_cases(prefix, f5, conf):
+    """(name, argv, kernels the run must launch, SimClock?) of phase 8's
+    runs on golden-derived reads: map at the CLI's defaults (pooled, B=64,
+    the conf defaults), map --ord and the classic engine on CLI_SMALL
+    reads, and sim on CLI_CH channels for CLI_SIM_SECS simulated seconds
+    (--duration is in hours)."""
+    n = str(CLI_SMALL)
+    return (
+        ("map", ["map", prefix, f5], DEFAULT_KERNELS, False),
+        ("map --ord", ["map", prefix, f5, "--ord", "-n", n], DEFAULT_KERNELS,
+         False),
+        ("map --engine-pooled false", ["map", prefix, f5, "--engine-pooled",
+                                       "false", "-n", n], CLASSIC_KERNELS,
+         False),
+        ("sim", ["sim", prefix, f5, "--conf", conf, "--duration",
+                 str(CLI_SIM_SECS / 3600)], DEFAULT_KERNELS, True))
+
+
+def cli_small(device):
+    """Phase 8's golden-derived runs on ``device``: {name: stdout lines,
+    wall-clock tags stripped}."""
+    cases = cli_small_cases(*cli_inputs(device))
+    return {name: [strip_wall(x) for x in run_cli(
+        argv + ["--device", device], clock)[0]]
+        for name, argv, _, clock in cases}
+
+
+def phase_cli(out, refs):
+    """The port's command line on the card, called in-process: ``index``;
+    map, map --ord, the classic map and sim on golden-derived reads, each
+    equal to the port's own --device cpu run from the worker; and map at
+    the CLI's defaults on phase 4's genome and CLI_N of its reads."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from uncalled_tpu_torch.mapping.batch import BatchMapper
+    from uncalled_tpu_torch.ops import _cuda
+    from uncalled_tpu_torch.ops._cuda import BUILD_DIR
+
+    log("[8] fast5 input: through a stand-in for io.fast5.load_fast5 (an "
+        ".npz of int16 raw data and the read and channel attributes, "
+        "calibrated by io.fast5._calibrate), on every machine: h5py, the "
+        "fast5 reader's optional dependency, is not part of the card's "
+        "PyTorch installation")
+    res = out["cli"] = {}
+    prefix, f5, conf = cli_inputs("cuda")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        t0 = time.time()
+        fa = shutil.copy(prefix + ".fa", os.path.join(tmp, "example_ref.fa"))
+        run_cli(["index", fa, "-o", os.path.join(tmp, "example_ref")])
+        with open(os.path.join(tmp, "example_ref.uncl"), "rb") as a, \
+                open(prefix + ".uncl", "rb") as b:
+            ok = a.read() == b.read()
+    res["index"] = dict(uncl_equal=ok, seconds=time.time() - t0)
+    log(f"[8] index: .uncl {'byte-identical to' if ok else 'DIFFERS from'}"
+        f" tests/fixtures/example_index/example_ref.uncl; "
+        f"{res['index']['seconds']:.1f} s")
+
+    small = {}
+    for name, argv, kernels, clock in cli_small_cases(prefix, f5, conf):
+        _cuda.reset_counts()
+        t0 = time.time()
+        lines = [strip_wall(x) for x in run_cli(argv, clock)[0]]
+        torch.cuda.synchronize()
+        counts = dict(_cuda.COUNTS)
+        small[name] = lines
+        res[name] = dict(lines=len(lines), seconds=time.time() - t0,
+                         kernels_ran=all(counts[k] > 0 for k in kernels),
+                         launches=counts)
+
+    # real size: phase 4's index and thresholds under one prefix, CLI_N of
+    # its timed reads in one stand-in fast5, map at the CLI's defaults
+    fmi, th, sim = real_assets()
+    reads = sim[8: 8 + CLI_N]
+    truth = {r.id: (r.ref_name, r.ref_start, r.ref_end, r.fwd) for r in reads}
+    made = []
+    init = BatchMapper.__init__
+
+    def record(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        big = os.path.join(tmp, "rgen")
+        fmi.save(big)
+        shutil.copy(assets_prefix() + ".uncl", big + ".uncl")
+        f5big = os.path.join(tmp, "reads.fast5")
+        write_fast5_npz(f5big, [(r.id, r.signal) for r in reads], 512)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _cuda.reset_counts()
+        BatchMapper.__init__ = record
+        t0 = time.perf_counter()
+        try:
+            lines, err, first, stamps = run_cli(["map", big, f5big])
+        finally:
+            BatchMapper.__init__ = init
+        torch.cuda.synchronize()
+    counts = dict(_cuda.COUNTS)
+    bm = made[0]
+    chain = _chain(bm)
+    steps = sum(m.disp_events // m.eng.params.B for m in chain)
+    dt = stamps[-1] - first[0] if stamps and first else float("nan")
+    cols = [x.split("\t") for x in lines]
+    mapped = [c for c in cols if c[4] in "+-"]
+    correct = [c for c in mapped if c[5] == truth[c[0]][0]
+               and truth[c[0]][1] - 500 <= int(c[7]) <= truth[c[0]][2] + 500
+               and (c[4] == "+") == truth[c[0]][3]]
+    p = bm.eng.params
+    real = dict(
+        reads=len(reads), lines=len(lines),
+        yielded_all=sorted(c[0] for c in cols) == sorted(truth),
+        setup_s=first[0] - t0 if first else None, seconds=dt,
+        reads_per_s=len(reads) / dt, steps=steps,
+        steps_entry=bm.disp_events // p.B, ms_per_step=dt * 1e3 / max(steps, 1),
+        mapped_frac=len(mapped) / len(reads),
+        correct_frac=len(correct) / len(reads),
+        shapes=dict(B=p.B, S=p.S, SC=p.SC, CL=p.CL, T=bm.T,
+                    sort_mode=p.sort_mode, handoff=p.handoff),
+        n_handoff=sum(m.n_handoff for m in chain),
+        drain_widths=_drains(bm),
+        ejects_per_tier=[m.n_ejected for m in bm.tiers()],
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        launches=counts,
+        launches_per_step={k: v / max(steps, 1) for k, v in counts.items()},
+        stderr=err.strip().splitlines()[-1:])
+    res["real"] = real
+    log("[8] real: " + json.dumps(real))
+    log(f"[8] map at the CLI's defaults, {len(reads)} reads of the 4.7 Mb "
+        f"genome: {real['reads_per_s']:.2f} reads/s from the first fast5 "
+        f"read to the last PAF line, {real['ms_per_step']:.2f} ms per event "
+        f"step, mapped {real['mapped_frac']:.3f}, correct "
+        f"{real['correct_frac']:.3f}, peak device memory "
+        f"{real['max_memory_allocated']} B ({out.get('card')})")
+    ok &= (len(lines) == len(reads) and real["yielded_all"]
+           and real["mapped_frac"] >= 0.95)
+    ok &= all(counts[k] > 0 for k in DEFAULT_KERNELS)
+
+    # the golden-derived runs against the worker's (ready by now)
+    want = refs.get("cli")
+    for name, lines in small.items():
+        r = res[name]
+        r["equal"] = lines == want[name]
+        log(f"[8] {name}: {r['lines']} lines, "
+            f"{'equal to' if r['equal'] else 'DIFFER from'} the port's "
+            f"--device cpu run; {r['seconds']:.1f} s; launches "
+            + json.dumps({k: v for k, v in r["launches"].items() if v}))
+        ok &= r["equal"] and r["kernels_ran"] and r["lines"] > 0
+    return ok
+
+
 def profile_block(bm, reads):
     """One block of T events with every slot live, timed plain and then
     traced with torch.profiler: wall per step, device kernel time per step,
@@ -3212,7 +3492,7 @@ def profile_block(bm, reads):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
     # internal: the CPU reference worker (started by the main process)
     ap.add_argument("--cpu-refs", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3240,9 +3520,9 @@ def main(argv=None) -> int:
 
     out = {"kernels": {}, "phase_seconds": {}}
     ok = True
-    # the realtime checks' CPU references run in a worker process beside
-    # phases 1-3
-    refs = CpuRefs() if phases & {2, 3} else None
+    # the CPU references of the realtime and CLI checks run in a worker
+    # process beside phases 1-3
+    refs = CpuRefs() if phases & {2, 3, 8} else None
     try:
         t0 = time.time()
         phase_card(out)
@@ -3257,7 +3537,8 @@ def main(argv=None) -> int:
                 (4, lambda: phase_real(out, rate)),
                 (5, lambda: phase_classic(out)),
                 (6, lambda: phase_defaults(out)),
-                (7, lambda: phase_realtime(out))):
+                (7, lambda: phase_realtime(out)),
+                (8, lambda: phase_cli(out, refs))):
             if n in phases:
                 t0 = time.time()
                 try:
@@ -3281,7 +3562,7 @@ def main(argv=None) -> int:
     print(out["card"])
     print(json.dumps({"kernels": [dict(name=k, **v)
                                   for k, v in out["kernels"].items()]}))
-    if not ok or phases != {1, 2, 3, 4, 5, 6, 7}:
+    if not ok or phases != {1, 2, 3, 4, 5, 6, 7, 8}:
         log("chip_smoke: FAILED" if not ok else "chip_smoke: partial run")
         return 1
     print(json.dumps({"ok": True, "device": {

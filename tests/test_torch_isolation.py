@@ -98,6 +98,35 @@ def test_entry_points_default_to_cuda(monkeypatch):
     assert eng.fresh_state()["p_cum"].device.type == "cpu"
 
 
+@pytest.mark.parametrize("argv", [
+    ["map", "{prefix}", "{empty}"],
+    ["map", "{prefix}", "{empty}", "--ord"],
+    ["sim", "{prefix}", "{empty}"],
+    ["realtime", "{prefix}"],
+    ["dtw", "{prefix}", "{empty}", "--paf", "{empty}/none.paf"],
+], ids=["map", "map-ord", "sim", "realtime", "dtw"])
+def test_cli_defaults_to_cuda(monkeypatch, tmp_path, argv):
+    """The command line runs on the card unless --device cpu is given, and
+    raises without one (no fallback to the CPU)."""
+    from uncalled_tpu_torch.__main__ import main
+    from uncalled_tpu_torch.realtime import client
+
+    class StandIn(client.MinknowClient):  # no MinKNOW here
+        def __init__(self, conf, host, port, chunk_time):
+            super().__init__(conf, host, port, chunk_time,
+                             connection_factory=lambda: None)
+
+    monkeypatch.setattr(client, "MinknowClient", StandIn)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    prefix = os.path.join(REPO, "tests", "fixtures", "example_index",
+                          "example_ref")
+    argv = [a.format(prefix=prefix, empty=tmp_path) for a in argv]
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        main(argv + ["--device", "cuda"])
+
+
 @pytest.mark.parametrize("alone", [False, True])
 def test_chip_smoke_refuses_without_card_or_checkout(tmp_path, alone):
     """chip_smoke.py prints no result and exits non-zero without a CUDA

@@ -1,4 +1,4 @@
-"""Simulated ReadUntil run (reference scripts/uncalled:160-291).
+"""`sim` subcommand: simulated ReadUntil run (reference scripts/uncalled:160-291).
 
 Drives ClientSim + RealtimeMapper with the reference's per-read decision
 rule: ended -> stop_receiving (en tag); (mapped XOR deplete) -> unblock if
@@ -9,8 +9,6 @@ unblocked number.
 Patterns come from `<prefix>_itvs/_gaps/_delays/_reads.txt` files (the
 reference ClientSim::load_from_files format, client_sim.cpp:44-66) or, if
 absent, a default full-run interval per channel with reads dealt round-robin.
-The CLI entry that reads fast5 files (the JAX package's ``run_sim``) waits
-for the port's file input.
 """
 
 from __future__ import annotations
@@ -143,3 +141,50 @@ def run_sim_loop(client: ClientSim, rt, conf: Conf, deplete: bool,
             if sleep and dt < sleep:
                 time.sleep(sleep - dt)
     return n_out
+
+
+def run_sim(args):
+    """CLI entry (`python -m uncalled_tpu_torch sim`).  Like the JAX entry it
+    builds its own Conf from ``--conf`` and leaves the reflected
+    ``--<section>-<field>`` overrides unread; ``--duration`` is in hours."""
+    from ..index.fmindex import load_index
+    from ..io.fast5 import iter_reads
+    from ..mapping.thresholds import load_uncl
+    from ..poremodel import load_default
+    from .mapper import RealtimeMapper
+
+    conf = Conf()
+    if getattr(args, "conf", None):
+        conf.load_toml(args.conf)
+    conf.simulator.sim_speed = args.sim_speed
+    conf.engine.evt_block = args.evt_block
+
+    fmi = load_index(args.bwa_prefix)
+    threshes = load_uncl(args.bwa_prefix + ".uncl", args.idx_preset)
+    reads = list(iter_reads(args.fast5s, recursive=args.recursive))
+    sys.stderr.write(f"Loaded {len(reads)} reads\n")
+
+    conf.simulator.ctl_seqsum = args.ctl_seqsum
+    conf.simulator.unc_seqsum = args.unc_seqsum
+    conf.simulator.unc_paf = args.unc_paf
+    client = ClientSim(conf)
+    if args.unc_seqsum and args.ctl_seqsum and args.unc_paf:
+        from .sim_utils import load_sim
+
+        load_sim(client, conf)
+    elif not (args.unc_seqsum and load_pattern_files(client, args.unc_seqsum)):
+        dur = sum(r.raw_len for r in reads) // max(len(client.channels), 1) * 2
+        default_pattern(client, reads, max(dur, conf.reads.sample_rate * 60))
+    client.load_reads(reads)
+
+    rt = RealtimeMapper(
+        fmi, load_default(), threshes, conf,
+        P=args.max_paths, C=args.max_paths, R=args.seed_rows, CL=args.clusters,
+        device=args.device,
+    )
+    deplete = not args.enrich
+    n = run_sim_loop(
+        client, rt, conf, deplete, even=args.even, odd=args.odd,
+        duration=args.duration,
+    )
+    sys.stderr.write(f"Simulation done: {n} reads reported\n")
