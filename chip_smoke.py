@@ -19,12 +19,14 @@ verdict, printed only when every phase passed):
    row gathers of the B=64 rung and the final rung, the row fold at
    B=64/CL=1024/R=256 and B=32/CL=4096/R=1024): bits must be equal;
    kernel, plain and (where one PyTorch call computes the same function)
-   library device times; the column gathers at the three sites that
+   library device times (the merge level at its headline stride only; a
+   plain version of thousands of launches a call, the row fold's and the
+   LF-walk's, by CUDA events); the column gathers at the three sites that
    once packed their fields into a table (pooled parent pack, the
    unified record table's five segments, classic parent pack), each
    against that pack plus one library gather; the whole bitonic sort
    against the flat sort, with its launches, each launch's device time
-   and a sweep of its schedule (run width, tile, fused strides); both
+   and 48 schedules (run width, tile, fused strides) held to it; both
    forms of both tracker folds (the table in
    shared memory up to CL=8192, in device memory above) at the widths the
    mappers use, in three occupancy regimes and on an adversarial tie
@@ -44,12 +46,20 @@ verdict, printed only when every phase passed):
    S=4096 and S=512 (against the plain version's outputs and states from
    the CPU worker below), with its device time, byte bound and serial
    bound (S steps of the scan, each timed by a probe of the kernel's own
-   step on one thread);
+   step on one thread); the sharded engines' two kernels: the shard-local
+   row gather (``csrc/shard.cu``) over phase 4's occ_rows split in 2 and
+   in 4 (2*SC rows, F=6) and its 1/32 SA sample (RT rows, F=1), every
+   block, rows in no shard and the padding rows among them, and the
+   sharded LF-walk's local run (``csrc/sa_lookup.cu`` ``sa_walk_step``)
+   on every row of the example index at intv 32 and 24 on both blocks of
+   a split in 2, its rounds summed into the whole walk against
+   ``sa_lookup``; each timed at one rank's shapes in phase 9 (c);
 3. the 14 golden reads on the example index through ``BatchMapper``, on
    the pooled engine and on the classic engine, each with the full SA and
    with the 1/32 SA sample (the LF-walk kernel, in every engine of the
-   chain; noise_1, which never decides, runs once per engine: pooled with
-   the full SA, classic sampled): every PAF line byte-identical to
+   chain; noise_1, which never decides, runs whole once: classic with the
+   full SA; the pooled engine maps its first NOISE_CUT samples, held to
+   the port's CPU run): every PAF line byte-identical to
    ``tests/fixtures/golden_pafs.json``, with every kernel of the path
    launched; a pooled eject tier, a narrow classic remap ladder (one
    read), and pooled tiers that chain to the classic final rung each give
@@ -80,11 +90,12 @@ verdict, printed only when every phase passed):
 5. classic at real size: the same genome and reads, ``pooled = False`` at
    the conf defaults (B=64, P=1024, C=1024, CE=1280, R=256, CL=1024, T=64
    and the default remap ladder), 8 warm-up + 64 timed reads, with the
-   same measures plus reads per ladder rung and a profiled block on every
-   rung that ran, and the same re-check of captured kernel inputs; every
-   read is yielded;
+   same measures plus reads per ladder rung and a profiled block on the
+   rung that ran the most steps, and the same re-check of captured kernel
+   inputs; every read is yielded;
 6. pooled at the conf defaults (slot handoff, drain chain, bitonic sort)
-   on phase 4's reads at B=256, T=32: reads/s, ms per step, slot
+   on the first 320 of phase 4's timed reads at B=256, T=32: reads/s, ms
+   per step, slot
    utilisation over every mapper of the chain, handoffs, migrations, the
    drain widths, ejects per tier, launches per kernel per step, peak
    memory, a profiled block; the first full-width sort's run-sort and
@@ -94,7 +105,7 @@ verdict, printed only when every phase passed):
 7. realtime at 512 channels: bench_sim.py's configuration (288 pool slots
    a read, the first 1024 reads of phase 4's generator dealt by
    ``default_pattern``, ``SimClock`` ticks of 0.3 s, deplete) on phase 4's
-   genome, 10 simulated seconds (bench_sim.py runs 30): realtime factor,
+   genome, 6 simulated seconds (bench_sim.py runs 30): realtime factor,
    decisions, ej / en / ovf give-ups, eject latency on the sim clock, wall
    ms per update, peak device memory, and the fraction of mapped decisions
    that meet the truth rule (gate 0.90); after the timed window, on the
@@ -119,6 +130,26 @@ verdict, printed only when every phase passed):
    the first fast5 read to the last PAF line, ms per event step, mapped
    and correct fractions (every read yielded, mapped >= 0.95), peak
    device memory;
+
+9. the sharded engines (``uncalled_tpu_torch.parallel``) through
+   ``BatchMapper``, on the cases of the JAX package's tests/test_sharded.py
+   (2 golden reads at B=4 on ``ShardedMapEngine`` and
+   ``ShardedPooledEngine``, 4 at B=2 on the pooled one): (a) NCCL at
+   world size 1, mesh (1, 1), in this process, every line golden and
+   every kernel of both engines launched, the two sharded kernels among
+   them; (b) four ``gloo`` ranks on this card (``testing/multihost_child``
+   processes), mesh (2, 2): the same lines on every rank, each rank
+   holding half the padded rows of occ_rows and the SA sample, and one
+   sum over idx timed; (c) four ranks at real size:
+   phase 4's index and thresholds saved under a prefix, ``N_SHARDED`` of
+   its timed reads at B=256 (128 a dp rank), S=98304, SC=122880, CL=2048,
+   RT=6144, T=32, the 1/32 SA sample: every read yielded, each line
+   phase 4's (but for reads a rank's share of a budget sent to an eject
+   tier), mapped >= 0.95; ms per event step of the untimed run (after a
+   block of warm-up), the sums' share of a step (a separate block with
+   every sum timed between two synchronisations), walk steps and rounds
+   per event, each rank's table bytes, launches per step.  Four ranks on
+   one card time gloo through the host, not the layout over NVLink;
 
 then the ``{"kernels": [...]}`` line and the verdict.  The CPU references
 of the realtime and CLI checks run in a worker process (this script with
@@ -153,8 +184,12 @@ SC_FULL = S_FULL + S_FULL // 4  # 122880
 RT_FULL = 24 * B_FULL  # 6144
 RING = 23
 # timed reads of phases 4 (and 6) and 5 (phase 5 cut from 256 to 128 to
-# make room for phase 7 in the time limit, and to 64 for phase 8)
+# make room for phase 7 in the time limit, and to 64 for phase 8: no
+# fewer than its B=64 slots, so the timed run starts with every slot live)
 N_POOLED, N_CLASSIC = 512, 64
+# phase 6's timed reads: the first of phase 4's (cut from 512 to make room
+# for phase 9; more than its 256 slots, so reads wait and the handoff runs)
+N_DEFAULTS = 320
 N_SAMPLED = 256  # phase 4's sampled-SA run: the first of its timed reads
 POOLED_KERNELS = ("flat_gather", "pair_counts", "ring_assemble",
                   "tracker_fold")
@@ -197,6 +232,15 @@ KERNELS = {
     "detect": dict(
         route="cuda", source="uncalled_tpu_torch/csrc/detect.cu",
         replaces="uncalled_tpu/ops/events.py:338-471"),
+    # no Pallas kernel: the local half of the JAX sharded row gather
+    # (before its psum over idx)
+    "shard_take": dict(
+        route="cuda", source="uncalled_tpu_torch/csrc/shard.cu",
+        replaces="uncalled_tpu/mapping/engine.py:262-272"),
+    # no Pallas kernel: one iteration of the JAX LF-walk under shard_map
+    "sa_walk_step": dict(
+        route="cuda", source="uncalled_tpu_torch/csrc/sa_lookup.cu",
+        replaces="uncalled_tpu/mapping/engine.py:338-381"),
 }
 # the device event detector (phase 2 at B=512, S=4096 over three blocks)
 DET_B, DET_S, DET_NB = 512, 4096, 3
@@ -205,9 +249,9 @@ DET_B, DET_S, DET_NB = 512, 4096, 3
 # events in the debug dump
 SIM3_SECS, DUMP_EVENTS = 10.0, 256
 # phase 7, bench_sim.py's configuration cut from 30 to 10 simulated
-# seconds: channels, pool slots a read, reads dealt, seconds, tick, and the
-# truth-rule gate on the mapped decisions
-RT_CH, RT_SPR, RT_READS, RT_SECS, RT_TICK = 512, 288, 1024, 10.0, 0.3
+# seconds, and to 6 for phase 9: channels, pool slots a read, reads
+# dealt, seconds, tick, and the truth-rule gate on the mapped decisions
+RT_CH, RT_SPR, RT_READS, RT_SECS, RT_TICK = 512, 288, 1024, 6.0, 0.3
 RT_TRUTH_MIN = 0.90
 SC_RT = RT_CH * RT_SPR + RT_CH * RT_SPR // 4  # 184320: NP = 262144
 # the sampled-SA paths add the LF-walk lookup to each engine's kernels
@@ -217,11 +261,20 @@ SA_INTV = 32
 # probe.cu holds measurement probes (an empty launch, a pointer chase), no
 # kernel of the mapper
 STEMS = ("detect", "flat_gather", "probe", "row_gather", "sa_lookup",
-         "sortkern", "stepkern", "tracker_kernel")
+         "shard", "sortkern", "stepkern", "tracker_kernel")
+# phase 9, the sharded engines: their two kernels, the reads of (c) (the
+# first of phase 4's timed reads), and each rank start's time limit
+SHARD_KERNELS = ("shard_take", "sa_walk_step")
+N_SHARDED = 64
+SHARD_TIMEOUT_S = 420
+
+
+_T0 = time.time()
 
 
 def log(*a):
-    print(*a, flush=True)
+    """A line of the run's log, after the seconds since the start."""
+    print(f"{time.time() - _T0:7.1f}", *a, flush=True)
 
 
 def hbm_rate(name: str) -> float:
@@ -348,16 +401,19 @@ def _median_of_full(trace, tries=6):
             for i in range(len(full[0]))]
 
 
-def device_ms(fns, tag="call"):
+def device_ms(fns, tag="call", sources=None):
     """Device milliseconds per call of each ``fn`` of ``fns``, a list of
     (fn, reps): the sum of the kernels, memsets and copies that start
     inside its window — the card's own time, free of the host's issue
     time that CUDA events around a short call also catch.  One profiler
     session traces every fn in turn, each ``reps`` calls and a synchronize
     inside a ``record_function`` window of its own; a trace counts when
-    every device event falls in a window.  Where no trace does, each fn
-    is traced in sessions of its own and all their device events count.
-    It raises when no trace held device activity."""
+    every device event falls in a window and every window holds some.
+    Where no trace does, each fn is traced in sessions of its own and all
+    their device events count; a fn whose traces all come back empty (the
+    profiler has lost one-block launches) is timed by CUDA events around
+    its calls, launch included.  A ``sources`` list gets, for each fn,
+    "profiler" or "cuda_events"."""
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -373,7 +429,7 @@ def device_ms(fns, tag="call"):
             trace_events(prof, tag, DEVICE_CATS + ("user_annotation",
                                                    "gpu_user_annotation")),
             len(fns))
-        if seen != n_dev:
+        if seen != n_dev or not all(us):  # a window lost its kernels
             return n_dev, None
         return n_dev, [u / 1e3 / r for u, (_, r) in zip(us, fns)]
 
@@ -392,6 +448,7 @@ def device_ms(fns, tag="call"):
         fn()
     torch.cuda.synchronize()
     ms = _median_of_full(windows)
+    src = ["profiler"] * len(fns)
     if ms is None:
         log(f"[timing] {tag}: device events outside the windows in every "
             "trace; one session per call instead")
@@ -399,9 +456,13 @@ def device_ms(fns, tag="call"):
         for i, (fn, reps) in enumerate(fns):
             one = _median_of_full(alone(fn, reps, f"{tag}_{i}"))
             if one is None:
-                raise RuntimeError(f"{tag}: the profiler recorded no "
-                                   "device activity")
+                log(f"[timing] {tag}_{i}: the profiler recorded no device "
+                    "activity; CUDA events around the call instead")
+                one = [time_ms(fn, reps=max(reps, 3))]
+                src[i] = "cuda_events"
             ms += one
+    if sources is not None:
+        sources += src
     return ms
 
 
@@ -1091,13 +1152,15 @@ def phase_kernels(out, rate):
                          (lambda targs=targs: tk.tracker_run_plain(*targs))
                          if head else None,
                          None, nbytes=2 * tb + nrows * 13 + B * 4,
-                         plain_reps=1, shape=f"{label} rows={nrows}",
+                         plain_reps=3, plain_events=True,
+                         shape=f"{label} rows={nrows}",
                          key=None if head else f"tracker_fold_rows[{label}]",
                          rows_longest=int(rows_r.clamp(max=R).max()))
     ok &= phase_merge(out, rate, rng, dev)
     ok &= phase_folds(out, dev)
     ok &= realtime_shapes(dev)
     ok &= sa_lookup_example(out, dev)
+    ok &= shard_kernels(out, rate, dev)
     return ok
 
 
@@ -1334,7 +1397,7 @@ def phase_merge(out, rate, rng, dev):
     C=128, 65536 and 131072 at C=1024), the run sort and the merge level
     to stride 1 at NP 8192 ... 131072 (with padding, and with whole tuples
     tied), then the whole sort against the flat sort: its launches, each
-    launch's device time, and the schedule sweep."""
+    launch's device time, and 48 schedules held to the flat sort."""
     import torch
 
     from uncalled_tpu_torch.ops import sortkern as sk
@@ -1348,15 +1411,17 @@ def phase_merge(out, rate, rng, dev):
         ks = sort_keys_case(rng, dev, NP)
         for k_lv, C in levels:
             label = f"NP={NP} k_lv={k_lv} C={C}"
-            head = (NP, k_lv) == (131072, 16384)
+            if (NP, k_lv) != (131072, 16384):  # timed at the headline only
+                ok &= check(f"merge_level[{label}]", sk.merge_level(ks, k_lv, C),
+                            sk.merge_level_plain(ks, k_lv, C))
+                continue
             ok &= report(
-                res if head else shapes, "merge_level",
-                sk.merge_level(ks, k_lv, C), sk.merge_level_plain(ks, k_lv, C),
-                rate, lambda ks=ks, k_lv=k_lv, C=C: sk.merge_level(ks, k_lv, C),
+                res, "merge_level", sk.merge_level(ks, k_lv, C),
+                sk.merge_level_plain(ks, k_lv, C), rate,
+                lambda ks=ks, k_lv=k_lv, C=C: sk.merge_level(ks, k_lv, C),
                 lambda ks=ks, k_lv=k_lv, C=C: sk.merge_level_plain(ks, k_lv,
                                                                    C),
                 None, nbytes=2 * NK_SORT * NP * 4,
-                key=None if head else f"merge_level[{label}]",
                 shape=f"NK={NK_SORT} {label}")
     # the run sort (headline: the step's SC padded to NP, runs of RUN_TILE)
     # and the merge level to stride 1, against their plain versions
@@ -1394,23 +1459,19 @@ def phase_merge(out, rate, rng, dev):
     ok &= check(f"sort1d_bitonic vs flat sort at SC={SC_RT} (NP=262144)",
                 pm._sort1d_bitonic(ks), pm._sort1d(ks))
     ks = sort_keys_case(rng, dev, 131072)
-    ok &= report(shapes, "merge_level", sk.merge_level(ks, 131072, 1),
-                 sk.merge_level_plain(ks, 131072, 1), rate,
-                 lambda: sk.merge_level(ks, 131072, 1),
-                 lambda: sk.merge_level_plain(ks, 131072, 1), None,
-                 nbytes=2 * NK_SORT * 131072 * 4,
-                 key="merge_level[NP=131072 k_lv=131072 C=1]",
-                 shape=f"NK={NK_SORT} NP=131072 k_lv=131072 C=1")
+    ok &= check("merge_level[NP=131072 k_lv=131072 C=1]",
+                sk.merge_level(ks, 131072, 1),
+                sk.merge_level_plain(ks, 131072, 1))
     ok &= phase_sort(out, rng, dev)
     return ok
 
 
 def phase_sort(out, rng, dev):
     """The whole candidate sort at SC: bitonic (the run sort and every merge
-    level) against the flat sort, bit for bit; device ms of both, the
-    bitonic sort's launches and each launch's device ms, and the device ms
-    of the schedules the sweep tries (the run width W, the tail's tile T,
-    the strides R a device-memory launch fuses)."""
+    level) against the flat sort, bit for bit, at the default schedule and
+    at 47 others (the run width W, the tail's tile T, the strides R a
+    device-memory launch fuses); device ms of both, the bitonic sort's
+    launches and each launch's device ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1450,9 +1511,9 @@ def phase_sort(out, rng, dev):
         sk.RUN_TILE, sk.MERGE_TILE, sk.FUSE_R = c
         pm._sort1d_bitonic(ks)
 
+    # every schedule is held to the flat sort; their times, a measurement
+    # and not a check, are no longer taken (phase 9's time)
     try:
-        sweep = device_ms([(lambda c=c: at(c), 10) for c in cfgs],
-                          tag="sort_sweep")
         sched_ok = True
         for c in cfgs:
             at(c)
@@ -1468,13 +1529,11 @@ def phase_sort(out, rng, dev):
         schedule_floor_ms=len(sched) * 2 * NK_SORT * NP * 4
         / hbm_rate(out["card"]) * 1e3,
         default=dict(W=keep[0], T=keep[1], R=keep[2]),
-        sweep={f"W={W} T={T} R={R}": m for (W, T, R), m in zip(cfgs, sweep)},
-        sweep_equal=sched_ok,
+        schedules_checked=len(cfgs), schedules_equal=sched_ok,
     )
     log("[2] whole sort at SC=122880: " + json.dumps(out["sort_compare"]))
-    best = min(out["sort_compare"]["sweep"].items(), key=lambda kv: kv[1])
-    log(f"[2] sort schedule sweep: fastest {best[0]} {best[1]:.4f} ms; "
-        f"default W={keep[0]} T={keep[1]} R={keep[2]}")
+    log(f"[2] sort schedules: {len(cfgs)} (W, T, R) equal to the flat sort: "
+        f"{sched_ok}; default W={keep[0]} T={keep[1]} R={keep[2]}")
     levels = (NP // min(keep[0], NP)).bit_length() - 1
     return eq and sched_ok and calls == dict(sort_runs=1, merge_level=levels)
 
@@ -1499,18 +1558,35 @@ def check(name, got, want, ph=2) -> bool:
 
 
 def report(res, name, got, want, rate, kfn, pfn, lfn, nbytes, shape,
-           plain_reps=10, key=None, rows_longest=None, ph=2) -> bool:
+           plain_reps=10, key=None, rows_longest=None, ph=2,
+           plain_events=False) -> bool:
+    """Check ``got`` against ``want`` and time the kernel, the plain version
+    and the library call; ``plain_events`` times the plain version by CUDA
+    events instead of tracing it (a plain version of thousands of launches
+    a call makes traces of seconds each)."""
     eq = check(key or name, got, want, ph)
-    fns = [(kfn, 20)] + [(f, r) for f, r in ((pfn, plain_reps), (lfn, 20))
-                         if f is not None]
-    ms, *rest = device_ms(fns, tag=name)
-    plain_ms = rest.pop(0) if pfn is not None else None
+    traced = pfn is not None and not plain_events
+    fns = [(kfn, 20)]
+    if traced:
+        fns.append((pfn, plain_reps))
+    if lfn is not None:
+        fns.append((lfn, 20))
+    src = []
+    ms, *rest = device_ms(fns, tag=name, sources=src)
+    plain_ms, plain_src = (rest.pop(0), src[1]) if traced else (None, None)
     lib_ms = rest.pop(0) if lfn is not None else None
+    if pfn is not None and not traced:
+        plain_ms = time_ms(pfn, reps=plain_reps, warm=1)
+        plain_src = "cuda_events"
     call_ms = time_ms(kfn)
     bound_ms = nbytes / rate * 1e3
+    # ms_source: "profiler" (the kernels' device time), or "cuda_events"
+    # where the profiler recorded none (wall time of a call, launch
+    # included)
     res[key or name] = dict(
         KERNELS[name], launches=0, max_abs_err=0.0 if eq else None,
-        ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by="bytes",
+        ms=ms, ms_source=src[0], plain_ms=plain_ms,
+        plain_ms_source=plain_src, bound_ms=bound_ms, bound_by="bytes",
         library_ms=lib_ms, call_ms=call_ms, shape=shape, bytes=nbytes,
     )
     if rows_longest is not None:  # a row chain: its length and per-row time
@@ -1552,7 +1628,7 @@ def _conf(B, spr, T, pooled=True):
     return conf
 
 
-def phase_golden(out):
+def phase_golden(out, refs):
     from uncalled_tpu_torch.index.bwa_compat import load_bwa_index
     from uncalled_tpu_torch.mapping.batch import BatchMapper
     from uncalled_tpu_torch.mapping.thresholds import load_uncl
@@ -1565,14 +1641,28 @@ def phase_golden(out):
     with open(os.path.join(fx, "golden_pafs.json")) as f:
         golden = json.load(f)
     sigs = np.load(os.path.join(fx, "golden_reads.npz"), allow_pickle=True)
+    # the 13 reads that decide (noise_1, which never decides and runs its
+    # 2250 events to the end, runs whole once in this phase: on the classic
+    # engine with the full SA, whose step costs about half the pooled one's)
     bm = BatchMapper(fmi, load_default(), th, _conf(4, 512, 64),
                      sort_mode="flat")
-    ok, info = golden_run("golden", bm, list(golden), golden, sigs,
-                          POOLED_KERNELS)
+    ok, info = golden_run("golden", bm, [r for r in golden if r != "noise_1"],
+                          golden, sigs, POOLED_KERNELS)
     out["golden_launches"] = info["launches"]
-    # the 13 reads that decide with the 1/32 SA sample: the LF-walk kernel
-    # looks up every seed row (noise_1, which never decides, runs once per
-    # engine: here with the full SA, on the classic engine sampled)
+    # the pooled engine's harvest of a read that never decides, at the end
+    # of its signal: noise_1 cut short, held to the port's CPU run
+    t0 = time.time()
+    got = noise_pooled("cuda")
+    want = refs.get("noise_pooled")
+    noise_ok = got == want and len(got) == 1 and got[0].split("\t")[4] == "*"
+    out["golden_noise_pooled"] = dict(line=got, equal=got == want,
+                                      seconds=time.time() - t0)
+    log(f"[3] noise_1 cut to {NOISE_CUT} samples, pooled: {got} "
+        f"{'equal to' if got == want else 'DIFFERS from'} the port's CPU "
+        f"run, unmapped {noise_ok} ({time.time() - t0:.2f} s)")
+    ok &= noise_ok
+    # the 13 reads with the 1/32 SA sample: the LF-walk kernel looks up
+    # every seed row
     bm = BatchMapper(fmi, load_default(), th, _conf(4, 512, 64),
                      sort_mode="flat", sampled_sa=True, sa_intv=SA_INTV)
     s_ok, out["golden_sampled"] = golden_run(
@@ -1773,22 +1863,22 @@ def phase_golden_classic(out, fmi, th, golden, sigs):
     from uncalled_tpu_torch.poremodel import load_default
 
     model = load_default()
-    # the 13 reads that decide at B=4 (more reads than slots) at the conf
-    # defaults; noise_1, which never decides (2250 events), runs in the
-    # sampled run below
+    # the 14 reads at B=4 (more reads than slots) at the conf defaults,
+    # noise_1 among them: its one run in this phase
     bm = BatchMapper(fmi, model, th, _conf(4, 512, 64, pooled=False))
-    ok, info = golden_run("classic golden", bm,
-                          [r for r in golden if r != "noise_1"], golden, sigs,
+    ok, info = golden_run("classic golden", bm, list(golden), golden, sigs,
                           CLASSIC_KERNELS)
     rungs = _rungs(bm)
     log(f"[3] classic golden rungs {rungs}")
     out["golden_classic"] = dict(info, rungs=rungs)
     ok &= isinstance(bm.eng, MapEngine)
-    # all 14 reads with the 1/32 SA sample, every rung sampled
+    # the 13 reads that decide with the 1/32 SA sample, every rung sampled
+    # (noise_1 ran above)
     bm = BatchMapper(fmi, model, th, _conf(4, 512, 64, pooled=False),
                      sampled_sa=True, sa_intv=SA_INTV)
-    s_ok, info = golden_run("classic golden sampled SA", bm, list(golden),
-                            golden, sigs, SAMPLED_CLASSIC)
+    s_ok, info = golden_run("classic golden sampled SA", bm,
+                            [r for r in golden if r != "noise_1"], golden,
+                            sigs, SAMPLED_CLASSIC)
     out["golden_classic_sampled"] = dict(info, rungs=_rungs(bm))
     ok &= s_ok and isinstance(bm.eng, MapEngine) and sampled_chain(bm)
 
@@ -1853,7 +1943,7 @@ def assets_prefix():
 def build_assets(prefix):
     """The 4.7 Mb genome (seed 42), its index and thresholds, and 8 + 512
     mismatched simulated reads (seed 123), built from the port's copies
-    (phase 5 maps the first 8 + 64 of the same reads)."""
+    (phase 5 maps the first 8 + 16 of the same reads)."""
     from uncalled_tpu_torch.index.build import build_index
     from uncalled_tpu_torch.index.parameterize import build_uncl
     from uncalled_tpu_torch.mapping.thresholds import load_uncl
@@ -2116,9 +2206,11 @@ def load_latency_ns(dev, n_words=7 << 18, steps=(20000, 60000)):
     nxt[perm] = np.roll(perm, -1)
     nxt_t = torch.from_numpy(nxt).to(dev)
     res = torch.empty(1, dtype=torch.int32, device=dev)
-    fns = [(lambda k=k: _cuda.launch("probe_chase", nxt_t, k, res), 3)
-           for k in steps]
-    ms = device_ms(fns, tag="load_latency")
+    # CUDA events: the difference of two single-thread chains cancels the
+    # launch (the profiler lost these one-block launches in a run)
+    ms = [time_ms(lambda k=k: _cuda.launch("probe_chase", nxt_t, k, res),
+                  reps=5)
+          for k in steps]
     return (ms[1] - ms[0]) * 1e6 / (steps[1] - steps[0])
 
 
@@ -2197,17 +2289,14 @@ def sa_lookup_real(out, rate, fmi, th, model, dev):
         def lib():
             return sa_full_t.index_select(0, rows_l)
 
-        # the plain walk (~14000 launches a call) is traced on its own:
-        # in one session with the kernel the profiler drops events
+        # the plain walk (~14000 launches a call) is timed by CUDA events
         ok &= report(out["kernels"], "sa_lookup", got,
                      sl.sa_lookup_plain(idx, rows_t, SA_INTV), rate,
-                     lambda: sl.sa_lookup(idx, rows_t, SA_INTV), None, lib,
-                     nbytes=nbytes, ph=4,
+                     lambda: sl.sa_lookup(idx, rows_t, SA_INTV),
+                     lambda: sl.sa_lookup_plain(idx, rows_t, SA_INTV), lib,
+                     nbytes=nbytes, ph=4, plain_reps=3, plain_events=True,
                      shape=f"{size} rows, n={n}, intv={SA_INTV}")
         ent = out["kernels"]["sa_lookup"]
-        ent["plain_ms"], = device_ms(
-            [(lambda: sl.sa_lookup_plain(idx, rows_t, SA_INTV), 1)],
-            tag="sa_lookup_plain")
         ent.update(
             chain_bound_ms=chain_ms, load_latency_ns=lat,
             walk_longest=int(walk.max()), walk_mean=float(walk.mean()),
@@ -2422,14 +2511,15 @@ def phase_classic(out):
     out["classic"] = real
     log("[5] classic: " + json.dumps(real))
     log("[5] tracker fold forms: " + json.dumps(fold_forms(counts)))
-    # one profiled block on every rung that ran (its first B timed reads)
+    # one profiled block on the rung that ran the most event steps, every
+    # slot live (the first B of phase 4's timed reads)
     out["classic_profile"] = {}
-    for m in bm2.tiers():
-        if m.disp_events:
-            prof = profile_block(m, timed)
-            out["classic_profile"][f"rung {m._rung}"] = prof
-            log(f"[5] profile rung {m._rung} (B={m.eng.params.B}, "
-                f"P={m.eng.params.P}): " + json.dumps(prof))
+    m = max(bm2.tiers(), key=lambda m: m.disp_events // m.eng.params.B)
+    prof = profile_block(m, [_Read(r.id, r.signal) for r in
+                             sim[8: 8 + m.eng.params.B]])
+    out["classic_profile"][f"rung {m._rung}"] = prof
+    log(f"[5] profile rung {m._rung} (B={m.eng.params.B}, "
+        f"P={m.eng.params.P}), the most steps: " + json.dumps(prof))
     ok &= lines_ok and len(pafs) == len(timed) and n_mapped > 0
     ok &= all(counts[k] > 0 for k in CLASSIC_KERNELS)
     for k in CLASSIC_KERNELS:
@@ -2474,7 +2564,7 @@ def phase_defaults(out):
     # the timed run; the first full-width sort's inputs are captured: the
     # run sort's keys and each merge level's buffer
     truth = {r.id: (r.ref_name, r.ref_start, r.ref_end, r.fwd) for r in sim}
-    timed = [_Read(r.id, r.signal) for r in sim[8:]]
+    timed = [_Read(r.id, r.signal) for r in sim[8: 8 + N_DEFAULTS]]
     bm2 = BatchMapper(fmi, model, th, conf, engine=bm.eng)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2643,6 +2733,22 @@ def rt_dsp_golden(device):
 
 
 DUMP_RID = "sim_0000_Escherichia_coli_3854_+"
+# noise_1 cut to its first NOISE_CUT samples (a few hundred events): the
+# pooled engine's run of a read that never decides to the end of its signal
+NOISE_CUT = 2000
+
+
+def noise_pooled(device):
+    """Phase 3's pooled golden mapper (B=4, flat sort) on noise_1 cut to
+    NOISE_CUT samples: its PAF lines."""
+    from uncalled_tpu_torch.mapping.batch import BatchMapper
+
+    fmi, model, th, _ = example_assets()
+    _, sigs = golden_signals()
+    bm = BatchMapper(fmi, model, th, _conf(4, 512, 64), sort_mode="flat",
+                     device=device)
+    return [p.to_line() for p in bm.map_reads(
+        [_Read("noise_1", sigs["noise_1"][:NOISE_CUT])])]
 
 
 def rt_dump(device):
@@ -2708,6 +2814,7 @@ def detect_golden_plain():
 # the CPU references the card's realtime checks are held to, in the order
 # the phases need them
 CPU_REFS = (("detect_golden", detect_golden_plain),
+            ("noise_pooled", lambda: noise_pooled("cpu")),
             ("dump_read", lambda: rt_dump("cpu")),
             ("map_ordered", lambda: rt_map_ordered("cpu")),
             ("dsp_golden", lambda: rt_dsp_golden("cpu")),
@@ -2903,8 +3010,9 @@ def phase_detect(out, rate, dev, refs):
 
     # time and bounds at the headline shape (block 0 of the seeded signal)
     blk0 = sig_d[:, :S].contiguous()
+    src = []
     ms, = device_ms([(lambda: ev.detect_block(st0, blk0), 20)],
-                    tag="detect")
+                    tag="detect", sources=src)
     call_ms = time_ms(lambda: ev.detect_block(st0, blk0))
     plain_ms = time_ms(lambda: ev.detect_block_plain(st0, blk0), reps=1,
                        warm=0)
@@ -2918,7 +3026,8 @@ def phase_detect(out, rate, dev, refs):
     byte_ms = nbytes / rate * 1e3
     out["kernels"]["detect"] = dict(
         KERNELS["detect"], launches=0, max_abs_err=0.0 if ok else None,
-        ms=ms, plain_ms=plain_ms, bound_ms=max(byte_ms, serial_ms),
+        ms=ms, ms_source=src[0], plain_ms=plain_ms,
+        bound_ms=max(byte_ms, serial_ms),
         bound_by="operations" if serial_ms > byte_ms else "bytes",
         library_ms=None, call_ms=call_ms, byte_bound_ms=byte_ms,
         serial_bound_ms=serial_ms, scan_step_ns=scan_ns, bytes=nbytes,
@@ -3426,6 +3535,318 @@ def phase_cli(out, refs):
     return ok
 
 
+# ---------------------------------------------------------------------------
+# the sharded engines' kernels (phase 2) and the sharded engines (phase 9)
+# ---------------------------------------------------------------------------
+
+def _pad_rows(a, mult):
+    extra = (-len(a)) % mult
+    return np.pad(a, [(0, extra)] + [(0, 0)] * (a.ndim - 1)) if extra else a
+
+
+def shard_rows(rng, n_rows, nix, k, count):
+    """Seeded indices over a table of n_rows padded to the nix multiple,
+    with the edges of block k, the padding rows and rows in no shard."""
+    padded = n_rows + (-n_rows) % nix
+    per = padded // nix
+    edges = np.array([-(2**31), -1, 0, k * per - 1, k * per,
+                      (k + 1) * per - 1, (k + 1) * per, n_rows - 1, n_rows,
+                      padded - 1, padded, 2**31 - 1], np.int64)
+    body = rng.integers(-64, padded + 64, count - len(edges))
+    return np.concatenate([edges, body]).astype(np.int32)
+
+
+def shard_kernels(out, rate, dev):
+    """The sharded engines' two kernels against their plain versions, bit
+    for bit: ``shard_take`` over phase 4's occ_rows split in 2 and in 4
+    (every block; 2*SC rows, F=6) and its sa_samp (RT rows, F=1), with rows
+    in no shard and the padding rows; ``sa_walk_step`` on every row of the
+    example index at intv 32 and 24, both blocks of a split in 2, and the
+    whole walk as the sum of the blocks' steps against the one-launch
+    lookup; then each kernel's device time at the shapes of phase 9 (c)
+    (one rank of the (2, 2) mesh: 2*SC/2 occ rows, RT/2 walk rows)."""
+    import torch
+
+    from uncalled_tpu_torch.index.bwa_compat import load_bwa_index
+    from uncalled_tpu_torch.mapping.engine import index_arrays
+    from uncalled_tpu_torch.mapping.thresholds import load_uncl
+    from uncalled_tpu_torch.ops import sa_lookup as sl
+    from uncalled_tpu_torch.ops import shard_take as st
+    from uncalled_tpu_torch.poremodel import load_default
+
+    def T(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+
+    res = out["kernels"]
+    rng = np.random.default_rng(20261017)
+    fmi, th, _ = real_assets()
+    model = load_default()
+    tabs = index_arrays(fmi, th, model, sampled_sa=True, sa_intv=SA_INTV)
+    ok = True
+    for nix in (2, 4):
+        for key, count in (("occ_rows", 2 * SC_FULL), ("sa_samp", RT_FULL)):
+            tbl = _pad_rows(tabs[key], nix)
+            per = len(tbl) // nix
+            for k in range(nix):
+                blk = T(tbl[k * per: (k + 1) * per])
+                rows = T(shard_rows(rng, len(tabs[key]), nix, k, count))
+                ok &= check(f"shard_take[{key} split {nix}, block {k}, "
+                            f"F={tbl.shape[1] if tbl.ndim == 2 else 1}, "
+                            f"{count} rows]",
+                            st.shard_take(blk, rows, k * per),
+                            st.shard_take_plain(blk, rows, k * per))
+    # the headline: one rank's take in (c), its local 2*SC/2 queries
+    occ = _pad_rows(tabs["occ_rows"], 2)
+    per = len(occ) // 2
+    blk = T(occ[:per])
+    rows = T(shard_rows(rng, len(tabs["occ_rows"]), 2, 0, SC_FULL))
+    own = rows[(rows >= 0) & (rows < per)]
+
+    def lib_take():
+        m = (rows >= 0) & (rows < per)
+        g = blk.index_select(0, rows.clamp(0, per - 1))
+        return torch.where(m[:, None], g, 0)
+
+    ok &= report(res, "shard_take", st.shard_take(blk, rows, 0),
+                 st.shard_take_plain(blk, rows, 0), rate,
+                 lambda: st.shard_take(blk, rows, 0),
+                 lambda: st.shard_take_plain(blk, rows, 0), lib_take,
+                 nbytes=rows.numel() * 4 * 7
+                 + int(torch.unique(own).numel()) * 24,
+                 shape=f"block {tuple(blk.shape)} of {len(occ)} rows, "
+                       f"{rows.numel()} rows")
+
+    # the walk step on every row of the example index, both blocks of 2
+    ex = os.path.join(REPO, "tests", "fixtures", "example_index",
+                      "example_ref")
+    efmi = load_bwa_index(ex)
+    eth = load_uncl(ex + ".uncl")
+    from uncalled_tpu_torch.mapping.engine import device_index
+
+    for intv in (SA_INTV, 24):
+        et = index_arrays(efmi, eth, model, sampled_sa=True, sa_intv=intv)
+        n, primary = et["n"], et["primary"]
+        eocc = _pad_rows(et["occ_rows"], 2)
+        esamp = _pad_rows(et["sa_samp"], 2)
+        po, ps = len(eocc) // 2, len(esamp) // 2
+        blocks = [(T(eocc[k * po: (k + 1) * po]),
+                   T(esamp[k * ps: (k + 1) * ps])) for k in range(2)]
+        L2 = T(et["L2"])
+        rows = torch.arange(n + 1, dtype=torch.int32, device=dev)
+        for k, (ob, _) in enumerate(blocks):
+            ok &= check(f"sa_walk_step[example index, intv {intv}, block {k}"
+                        f" of 2, all {n + 1} rows]",
+                        sl.sa_walk_step(ob, L2, rows, n, primary, intv,
+                                        k * po),
+                        sl.sa_walk_step_plain(ob, L2, rows, n, primary,
+                                              intv, k * po))
+        # the whole walk: rounds of the blocks' runs summed (the sum over
+        # idx), then the sample's take
+        r, steps, rounds = rows.clone(), torch.zeros_like(rows), 0
+        while bool(((r % intv) != 0).any()):
+            r, k_ = sum(sl.sa_walk_step(ob, L2, r, n, primary, intv, k * po)
+                        for k, (ob, _) in enumerate(blocks))
+            steps += k_
+            rounds += 1
+        q = torch.div(r, intv, rounding_mode="floor")
+        got = sum(st.shard_take(sb, q, k * ps)
+                  for k, (_, sb) in enumerate(blocks)) + steps
+        idx = device_index(efmi, eth, model, device=dev, sampled_sa=True,
+                           sa_intv=intv)
+        ok &= check(f"sharded walk[example index, intv {intv}, split 2, "
+                    f"{int(steps.max())} steps in {rounds} rounds] vs "
+                    "sa_lookup", got, sl.sa_lookup(idx, rows, intv))
+
+    # the headline step: one rank's walk rows in (c) (RT/2) over the 4.7 Mb
+    # genome's occ_rows, block 0 of 2
+    n, primary = tabs["n"], tabs["primary"]
+    L2 = T(tabs["L2"])
+    r = T(rng.integers(0, n + 1, RT_FULL // 2).astype(np.int32))
+    got = sl.sa_walk_step(blk, L2, r, n, primary, SA_INTV, 0)
+    taken = got[1]
+    ok &= report(res, "sa_walk_step", got,
+                 sl.sa_walk_step_plain(blk, L2, r, n, primary, SA_INTV, 0),
+                 rate, lambda: sl.sa_walk_step(blk, L2, r, n, primary,
+                                               SA_INTV, 0),
+                 lambda: sl.sa_walk_step_plain(blk, L2, r, n, primary,
+                                               SA_INTV, 0), None,
+                 nbytes=r.numel() * 12 + int(taken.sum()) * 24 + 20,
+                 shape=f"block {tuple(blk.shape)} of {len(occ)} rows, "
+                       f"{r.numel()} rows: {int((taken > 0).sum())} owned "
+                       f"and live, {int(taken.sum())} local steps, the "
+                       f"longest run {int(taken.max())}")
+    return ok
+
+
+def phase_sharded(out):
+    """Phase 9: the sharded engines through BatchMapper: (a) NCCL at world
+    size 1 on a (1, 1) mesh in this process; (b) four gloo ranks on this
+    card, (2, 2) mesh; (c) four gloo ranks at real size."""
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from uncalled_tpu_torch.ops import _cuda
+    from uncalled_tpu_torch.ops._cuda import BUILD_DIR
+    from uncalled_tpu_torch.testing import multihost_child as mc
+
+    res = out["sharded"] = {}
+    with open(os.path.join(REPO, "tests", "fixtures", "golden_pafs.json")) \
+            as f:
+        golden = json.load(f)
+
+    def lines_ok(cases):
+        bad = [(c, r) for c, v in cases.items() for r, line in
+               v["lines"].items() if line != golden[r]]
+        n = sum(len(v["lines"]) for v in cases.values())
+        want = sum(len(c[3]) for c in mc.GOLDEN_CASES.values())
+        return not bad and n == want, bad
+
+    log("[9] four ranks share one card: their collectives are gloo's, "
+        "staged through the host (NCCL refuses two ranks on one device), so "
+        "the times below are gloo's on one host and not the layout's over "
+        "NVLink")
+    # (a) NCCL at world size 1, in this process
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                                rank=0, world_size=1)
+        try:
+            mesh = mc.make_mesh(1, "nccl")
+            _cuda.reset_counts()
+            cases = mc.golden_cases(mesh, torch.device("cuda", 0))
+            torch.cuda.synchronize()
+            counts = dict(_cuda.COUNTS)
+        finally:
+            dist.destroy_process_group()
+    a_ok, bad = lines_ok(cases)
+    need = POOLED_KERNELS + CLASSIC_KERNELS + SHARD_KERNELS
+    a_ok &= all(counts[k] > 0 for k in need)
+    res["a"] = dict(backend="nccl", world=1, mesh=[1, 1],
+                    seconds=time.time() - t0, bad=bad, launches=counts,
+                    case_seconds={c: v["seconds"] for c, v in cases.items()})
+    for k in SHARD_KERNELS:
+        out["kernels"][k]["launches"] = counts[k]
+    log(f"[9] (a) NCCL, world 1, mesh (1, 1): "
+        f"{'every line golden' if not bad else 'MISMATCH ' + str(bad)}; "
+        f"{res['a']['seconds']:.1f} s; launches "
+        + json.dumps({k: counts[k] for k in need}))
+
+    # (b) gloo, four ranks on this card, mesh (2, 2)
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        ranks, _ = mc.collect(
+            mc.spawn(4, tmp, "golden", device="cuda", backend="gloo",
+                     timeout=SHARD_TIMEOUT_S), tmp, "golden", SHARD_TIMEOUT_S)
+    b_ok = True
+    for r in ranks:
+        good, bad = lines_ok(r["golden"])
+        same = r["golden"].keys() == ranks[0]["golden"].keys() and all(
+            r["golden"][c]["lines"] == ranks[0]["golden"][c]["lines"]
+            for c in r["golden"])
+        split = all(loc * 2 == tot for kind in ("map", "pooled")
+                    for loc, tot, _ in r["tables"][kind].values())
+        ran = all(r["launches"][k] > 0 for k in need)
+        b_ok &= good and same and split and ran
+    res["b"] = dict(backend="gloo", world=4, mesh=[2, 2],
+                    seconds=time.time() - t0, tables=ranks[0]["tables"],
+                    case_seconds={c: v["seconds"] for c, v in
+                                  ranks[0]["golden"].items()},
+                    launches=ranks[0]["launches"], ok=b_ok)
+    res["b"]["sum_ms"] = ranks[0]["sum_ms"]
+    log(f"[9] (b) gloo, four ranks on cuda:0, mesh (2, 2): lines "
+        f"{'golden on every rank' if b_ok else 'MISMATCH'}; each rank's "
+        f"tables {json.dumps(ranks[0]['tables'])}; "
+        f"{res['b']['seconds']:.1f} s with the ranks' start")
+    log("[9] (b) one sum over idx of 3072 int32 on the card and its host "
+        "copy, as the sharded walk makes it: "
+        + json.dumps(ranks[0]["sum_ms"]))
+
+    # (c) real size, four ranks (2, 2): phase 4's index and reads
+    fmi, th, sim = real_assets()
+    reads = sim[8: 8 + N_SHARDED]
+    truth = {r.id: (r.ref_name, r.ref_start, r.ref_end, r.fwd) for r in reads}
+    t0 = time.time()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        big = os.path.join(tmp, "rgen")
+        fmi.save(big)
+        shutil.copy(assets_prefix() + ".uncl", big + ".uncl")
+        sig = np.empty(len(reads), object)
+        sig[:] = [r.signal for r in reads]
+        np.savez(os.path.join(tmp, "reads.npz"),
+                 ids=np.array([r.id for r in reads]), signals=sig)
+        spec = dict(prefix=big, reads=os.path.join(tmp, "reads.npz"),
+                    conf=dict(batch_reads=B_FULL, pooled=True,
+                              pool_slots_per_read=SPR, evt_block=32,
+                              slot_handoff=False, drain_shrink=False),
+                    over=dict(CL=CL_FULL, sampled_sa=True, sa_intv=SA_INTV))
+        with open(os.path.join(tmp, "real.json"), "w") as f:
+            json.dump(spec, f)
+        ranks, _ = mc.collect(
+            mc.spawn(4, tmp, "real", device="cuda", backend="gloo",
+                     timeout=SHARD_TIMEOUT_S), tmp, "real", SHARD_TIMEOUT_S)
+    wall = time.time() - t0
+    r0 = ranks[0]
+    lines = r0["lines"]
+    same = all(r["lines"] == lines for r in ranks)
+    ref = out.get("real_lines")
+    if ref is None:  # phase 4 did not run: its configuration, unsharded
+        from uncalled_tpu_torch.mapping.batch import BatchMapper
+        from uncalled_tpu_torch.poremodel import load_default
+
+        bm = BatchMapper(fmi, load_default(), th, _conf(B_FULL, SPR, 32),
+                         sort_mode="flat")
+        ref = {p.rd_name: p.to_line() for p in bm.map_reads(
+            [_Read(r.id, r.signal) for r in reads])}
+    differ = sorted(r.id for r in reads if lines.get(r.id) != ref.get(r.id))
+    cut = {rid: r0["ovf_why"].get(rid) for rid in differ}
+    cols = [x.split("\t") for x in lines.values()]
+    mapped = [c for c in cols if c[4] in "+-"]
+    correct = [c for c in mapped if c[5] == truth[c[0]][0]
+               and truth[c[0]][1] - 500 <= int(c[7]) <= truth[c[0]][2] + 500
+               and (c[4] == "+") == truth[c[0]][3]]
+    n = fmi.n
+    one_card = dict(occ_rows=((n + 31) // 32) * 24, sa=(n + 1) * 4,
+                    sa_samp=(n // SA_INTV + 1) * 4)
+    real = dict(
+        backend="gloo", world=4, mesh=[2, 2], reads=len(reads),
+        yielded=len(lines), lines_equal_all_ranks=same,
+        differ_from_phase4=differ, differing_ovf_why=cut,
+        mapped_frac=len(mapped) / len(reads),
+        correct_frac=len(correct) / len(reads),
+        **{k: r0[k] for k in ("seconds", "steps", "steps_entry",
+                              "ms_per_step", "collective_calls",
+                              "timed_block", "walk_steps_per_event",
+                              "walk_rounds_per_event", "ejects", "shapes",
+                              "launches_per_step")},
+        table_bytes_per_rank=[r["table_bytes"] for r in ranks],
+        table_bytes_one_card=one_card, wall_with_start_s=wall,
+        rank_seconds=[r["seconds"] for r in ranks],
+    )
+    res["c"] = real
+    log("[9] (c) real: " + json.dumps(real))
+    tb = real["timed_block"]
+    log(f"[9] (c) {len(reads)} reads of the 4.7 Mb genome at B={B_FULL} "
+        f"over four gloo ranks (2, 2): {real['ms_per_step']:.1f} ms per "
+        f"event step untimed ({real['collective_calls']} sums over idx); in "
+        f"a block of {tb['steps']} steps with the sums timed, "
+        f"{tb['ms_per_step']:.1f} ms a step, {tb['sums_per_step']:.1f} sums"
+        f" a step, {100 * tb['collective_share']:.1f}% of it in the sums; "
+        f"{real['walk_steps_per_event']:.1f} walk steps in "
+        f"{real['walk_rounds_per_event']:.1f} rounds per event; lines "
+        f"equal to phase 4's but {differ} (ovf_why {cut}); mapped "
+        f"{real['mapped_frac']:.3f}; each rank's occ_rows and sa_samp "
+        f"{r0['table_bytes']} B against one card's {one_card} B "
+        f"({out.get('card')})")
+    c_ok = (len(lines) == len(reads) and sorted(lines) == sorted(truth)
+            and same and all(cut[rid] for rid in differ)
+            and real["mapped_frac"] >= 0.95)
+    return a_ok and b_ok and c_ok
+
+
 def profile_block(bm, reads):
     """One block of T events with every slot live, timed plain and then
     traced with torch.profiler: wall per step, device kernel time per step,
@@ -3492,7 +3913,7 @@ def profile_block(bm, reads):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
     # internal: the CPU reference worker (started by the main process)
     ap.add_argument("--cpu-refs", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
@@ -3532,13 +3953,14 @@ def main(argv=None) -> int:
         for n, run in (
                 (2, lambda: phase_kernels(out, rate)
                  & phase_detect(out, rate, dev, refs)),
-                (3, lambda: phase_golden(out)
+                (3, lambda: phase_golden(out, refs)
                  & phase_realtime_small(out, refs)),
                 (4, lambda: phase_real(out, rate)),
                 (5, lambda: phase_classic(out)),
                 (6, lambda: phase_defaults(out)),
                 (7, lambda: phase_realtime(out)),
-                (8, lambda: phase_cli(out, refs))):
+                (8, lambda: phase_cli(out, refs)),
+                (9, lambda: phase_sharded(out))):
             if n in phases:
                 t0 = time.time()
                 try:
@@ -3562,7 +3984,7 @@ def main(argv=None) -> int:
     print(out["card"])
     print(json.dumps({"kernels": [dict(name=k, **v)
                                   for k, v in out["kernels"].items()]}))
-    if not ok or phases != {1, 2, 3, 4, 5, 6, 7, 8}:
+    if not ok or phases != set(range(1, 10)):
         log("chip_smoke: FAILED" if not ok else "chip_smoke: partial run")
         return 1
     print(json.dumps({"ok": True, "device": {

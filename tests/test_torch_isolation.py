@@ -186,3 +186,50 @@ def test_unported_options_raise():
     conf.engine.device_dsp = True
     bm = BatchMapper(fmi, model, th, conf, device="cpu")
     assert bm.conf.engine.device_dsp and hasattr(bm, "_prepare_wave")
+
+
+def test_scan_covers_the_sharded_layer():
+    """The import checks above reach the sharded engines and the rank
+    runner."""
+    mods = _package_modules()
+    for m in ("uncalled_tpu_torch.parallel", "uncalled_tpu_torch.parallel.sharded",
+              "uncalled_tpu_torch.ops.shard_take",
+              "uncalled_tpu_torch.testing.multihost_fixture",
+              "uncalled_tpu_torch.testing.multihost_child"):
+        assert m in mods, m
+
+
+def test_sharded_engines_default_to_cuda(tmp_path):
+    """A sharded engine built without device= takes the rank's card, and
+    raises without one; with device="cpu" it builds.  One gloo rank on a
+    (1, 1) mesh, in a fresh process (the process group is global)."""
+    code = f"""
+import os, sys
+sys.path.insert(0, {REPO!r})
+import torch, torch.distributed as dist
+from torch.distributed.device_mesh import init_device_mesh
+dist.init_process_group("gloo", init_method="file://{tmp_path}/init",
+                        rank=0, world_size=1)
+mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("dp", "idx"))
+torch.cuda.is_available = lambda: False
+from uncalled_tpu_torch.config import Conf
+from uncalled_tpu_torch.index.bwa_compat import load_bwa_index
+from uncalled_tpu_torch.mapping.thresholds import load_uncl
+from uncalled_tpu_torch.parallel import ShardedMapEngine, ShardedPooledEngine
+from uncalled_tpu_torch.poremodel import load_default
+p = os.path.join({REPO!r}, "tests", "fixtures", "example_index", "example_ref")
+args = (load_bwa_index(p), load_default(), load_uncl(p + ".uncl"), Conf())
+for cls in (ShardedPooledEngine, ShardedMapEngine):
+    try:
+        cls(*args, mesh=mesh, B=4)
+        sys.exit(cls.__name__ + " built without a card")
+    except RuntimeError as e:
+        assert "no CUDA" in str(e), e
+    eng = cls(*args, mesh=mesh, device="cpu", B=4)
+    assert eng.fresh_state()["done"].device.type == "cpu"
+dist.destroy_process_group()
+print("ok")
+"""
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stdout + r.stderr

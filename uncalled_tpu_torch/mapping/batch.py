@@ -383,6 +383,7 @@ class BatchMapper:
         ps, pd = self.eng.params, dm.eng.params
         if len(keep) > pd.B or ps.CL != pd.CL or ps.seed_len != pd.seed_len:
             return None
+        self.eng.check_migrate()
         t0 = time.time()
         # one device round trip for the high-water absorb and the fit check
         got = torch.cat([state["dm_pool"], state["n_paths"]]).cpu().numpy()

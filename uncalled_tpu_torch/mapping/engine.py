@@ -34,6 +34,7 @@ from ..device import resolve
 from ..kmer import KMER_COUNT
 from ..ops.mxu_gather import row_gather, row_gather_cols, shared_gather
 from ..ops.sa_lookup import sa_lookup
+from ..ops.shard_take import shard_take
 
 I32, F32, F64 = torch.int32, torch.float32, torch.float64
 INT32_MAX = 2**31 - 1
@@ -116,17 +117,39 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
 # FM-index primitives
 # ---------------------------------------------------------------------------
 
+def _shard_take(idx, key, rows):
+    """Row gather from a possibly row-sharded table (port of the JAX
+    ``_shard_take``).  With no shard context in ``idx`` it is the plain
+    take; under the sharded engines (``idx["shard"]``, a
+    :class:`~uncalled_tpu_torch.ops.shard_take.ShardContext`) each idx rank
+    answers the rows of its block (the ``shard_take`` kernel on the card)
+    and a sum over the idx group (``ShardContext.all_reduce``) combines
+    the answers."""
+    tbl = idx[key]
+    sh = idx.get("shard")
+    if sh is None:
+        return tbl.index_select(0, rows.reshape(-1)).reshape(
+            rows.shape + tbl.shape[1:])
+    return sh.all_reduce(
+        shard_take(tbl, rows.contiguous(), sh.rank * tbl.shape[0]))
+
+
 def _occ(idx, k, c):
     """# occurrences of base c in BWT rows [0, k] (BWA bwt_occ semantics:
     k<0 -> 0, k>=n -> full count, rows >= primary shift by one because the
     sentinel is not stored).  k/c int32 of any (equal) shape."""
     n, primary = idx["n"], idx["primary"]
+    kk = torch.where(k >= primary, k - 1, k).clamp(0, n - 1)
+    row = _shard_take(idx, "occ_rows", kk >> 5)  # [*, 6] bucket row
+    return _occ_count(idx, k, c, kk, row)
+
+
+def _occ_count(idx, k, c, kk, row):
+    """:func:`_occ` from the bucket row ``row`` ([*, 6]) that holds BWT
+    index ``kk`` (k shifted past the primary row and clamped to [0, n))."""
+    n = idx["n"]
     is_neg = k < 0
     is_full = k >= n
-    kk = torch.where(k >= primary, k - 1, k).clamp(0, n - 1)
-    row = idx["occ_rows"].index_select(0, (kk >> 5).reshape(-1)).reshape(
-        kk.shape + (6,)
-    )  # [*, 6] bucket row
     oh4 = c[..., None] == torch.arange(4, dtype=I32, device=k.device)
     base_cnt = torch.where(oh4, row[..., :4], 0).sum(-1, dtype=I32)
     rem = kk & 31
@@ -743,8 +766,7 @@ def _event_step(idx, p: EngineParams, st, ev, ev_on, debug=False):
     if p.sampled_sa:
         ref_en = n - sa_lookup(idx, sa_row, p.sa_intv)
     else:
-        ref_en = n - idx["sa"].index_select(0, sa_row.reshape(-1)).reshape(
-            B, R)
+        ref_en = n - _shard_take(idx, "sa", sa_row)
 
     # the row fold: each read's rows r < total_rows in order (rows_r = 0
     # for reads that do not advance)

@@ -58,6 +58,7 @@ from .engine import (
     _match_probs,
     _ring_read,
     _seg_running_max,
+    _shard_take,
     _tracker_decide,
     device_index,
     f32_const,
@@ -695,7 +696,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     if p.sampled_sa:
         ref_en_flat = n - sa_lookup(idx, sa_row, p.sa_intv)
     else:
-        ref_en_flat = n - idx["sa"].index_select(0, sa_row)
+        ref_en_flat = n - _shard_take(idx, "sa", sa_row)
     rr_evti = _flat_take(st["evt_i"], rr_rid.clamp(max=B - 1))
     rr_evt = torch.where(rr_end, rr_evti - 1, rr_evti)
 
@@ -884,11 +885,17 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     out["dm_paths"] = upd(st["dm_paths"], want_r)
     out["dm_rows"] = upd(st["dm_rows"], want_rows_r)
     out["dm_cl"] = upd(st["dm_cl"], out["n_cl"])
-    out["dm_pool"] = torch.maximum(
-        st["dm_pool"],
-        torch.stack([total_flags, ccum2_pad[-1] + cvalid[-1].to(I32),
-                     total_keep, n_ent, rw_b[-1]]),
-    )
+    if "shard" in idx:
+        # the sharded engines keep the [5] telemetry vector inert, as the
+        # JAX step does under shard_map, where per-shard maxima vary and
+        # cannot be a replicated carry
+        out["dm_pool"] = st["dm_pool"]
+    else:
+        out["dm_pool"] = torch.maximum(
+            st["dm_pool"],
+            torch.stack([total_flags, ccum2_pad[-1] + cvalid[-1].to(I32),
+                         total_keep, n_ent, rw_b[-1]]),
+        )
 
     dec = _tracker_decide(p, out) & alive
     out["done"] = st["done"] | dec
@@ -1027,9 +1034,14 @@ class PooledEngine:
             state, torch.as_tensor(np.asarray(mask, bool), device=self.device)
         )
 
+    def check_migrate(self):
+        """Raises where this engine's state cannot move to a drain mapper
+        (the sharded entry's ``ValueError``); this engine's always can."""
+
     def migrate(self, state, sel, dst: "PooledEngine"):
         """Relocate reads ``sel`` (numpy [B_dst], -1 = empty) into
         ``dst``'s state shape; see :func:`migrate_pool_state`."""
+        self.check_migrate()
         sel = torch.as_tensor(np.asarray(sel, np.int32), device=self.device)
         return migrate_pool_state(self.params, dst.params, state, sel)
 

@@ -46,6 +46,8 @@ _FUNCS = {
     "row_gather_cols_i32": ("row_gather", "qpp"),
     "sort_net_i32": ("sortkern", "aiipiqi"),
     "sa_lookup_i32": ("sa_lookup", "pppppiiii"),
+    "sa_walk_step_i32": ("sa_lookup", "ppppiiiiii"),
+    "shard_take_i32": ("shard", "pppiiii"),
     "detect_block_f32": ("detect", "aii"),
     # measurement probes (chip_smoke.py), no kernel of the mapper
     "probe_empty": ("probe", "iii"),
@@ -69,6 +71,10 @@ COUNTS = {
     "sort_runs": 0,
     "sa_lookup": 0,
     "detect": 0,
+    # the sharded engines (parallel/sharded.py): the shard-local row gather
+    # and the sharded LF-walk's local runs
+    "shard_take": 0,
+    "sa_walk_step": 0,
 }
 
 _libs: dict = {}
