@@ -73,9 +73,17 @@ verdict, printed only when every phase passed):
    case of tests/test_realtime.py (4 channels, 6 reads, cut to 10
    simulated seconds), ``BatchMapper`` with ``device_dsp`` on the 13
    golden reads that decide (the detector's launches on this path are the
-   kernels line's), and ``dump_read``'s three files;
+   kernels line's), and ``dump_read``'s three files; the port's oracle
+   (``mapping/oracle.py``, host numpy) on the 14 golden reads, computed by
+   the worker, every line byte-identical to the golden one; the FM-range
+   arithmetic (``ranges.py``) on tensors on the card, equal to its numpy
+   results;
 4. pooled at real size: a 4.7 Mb repeat-bearing genome, its index and
-   thresholds built here, 8 warm-up + 512 timed simulated reads at B=256
+   thresholds built here (bench.py's genome and reads: two of its reads
+   must be tie_reads.npz's signals bit for bit), 8 warm-up reads with the
+   7 tie reads of tests/fixtures/tie_reads.npz (untimed: their lines,
+   ``mt`` stripped, must be the reference rig's of tie_pafs.json) + 512
+   timed simulated reads at B=256
    (reads/s, ms per event step, mapped/correct fractions, ejects per tier,
    launches per kernel per step, peak device memory, the idle share of one
    profiled block); kernel inputs captured from live steps are re-checked
@@ -150,10 +158,17 @@ verdict, printed only when every phase passed):
    every sum timed between two synchronisations), walk steps and rounds
    per event, each rank's table bytes, launches per step.  Four ranks on
    one card time gloo through the host, not the layout over NVLink;
+10. the reference rig's lines on phase 4's genome: the port's oracle on
+    the 7 tie reads in both tie orders, computed by two host workers (one
+    process of one thread a tie order, the index built from phase 4's
+    .fa, started as soon as phase 4's assets are on disk, so they run
+    beside phases 2-9): the stable order's lines must equal tie_pafs.json
+    and the introsort order's tie_pafs_stdsort.json (``mt`` stripped);
 
 then the ``{"kernels": [...]}`` line and the verdict.  The CPU references
-of the realtime and CLI checks run in a worker process (this script with
-``--cpu-refs``, no card) beside phases 1-3, and end with the run.
+of the realtime, oracle and CLI checks run in a worker process (this
+script with ``--cpu-refs``, no card) beside phases 1-3, and end with the
+run.
 
 Imports nothing of JAX.  Exits non-zero without a CUDA card, or when run
 outside a checkout of the repository.
@@ -1924,12 +1939,15 @@ def phase_golden_classic(out, fmi, th, golden, sigs):
 
 
 _ASSETS: dict = {}
+_ON_ASSETS: list = []  # called once the assets are on disk
 
 
 def real_assets():
     """Phase 4's genome, index, thresholds and reads, built once."""
     if not _ASSETS:
         _ASSETS["v"] = build_assets(assets_prefix())
+        for f in _ON_ASSETS:
+            f()
     return _ASSETS["v"]
 
 
@@ -2106,15 +2124,46 @@ def phase_real(out, rate):
     log(f"[4] shapes B={p.B} S={p.S} SC={p.SC} CL={p.CL} R={p.R} RE={p.RE} "
         f"RT={p.RT} FS={p.FS} T={bm.T}")
 
-    # capture live kernel inputs during the warm-up run (first calls that
-    # carry seed rows), to re-check kernel vs plain on real step data
-    warm = [_Read(r.id, r.signal) for r in sim[:8]]
+    # the reads are bench.py's: the two tie reads among them are the
+    # fixture's signals bit for bit
+    tie_sig, tie_want = tie_fixtures()
+    pinned = {rid: sim[i].id == rid and np.array_equal(
+        np.asarray(sim[i].signal, np.float32).view(np.uint32),
+        tie_sig[rid].view(np.uint32)) for i, rid in TIE_IN_PHASE4.items()}
+    log("[4] phase 4's reads " + ", ".join(
+        f"sim[{i}] {'is' if pinned[r] else 'is NOT'} {r} of tie_reads.npz"
+        for i, r in TIE_IN_PHASE4.items()))
+    ok = all(pinned.values())
+
+    # the untimed warm-up: 8 reads and the 7 tie reads, whose lines must be
+    # the reference rig's (stable build); capture live kernel inputs (first
+    # calls that carry seed rows), to re-check kernel vs plain on real
+    # step data
+    warm = [_Read(r.id, r.signal) for r in sim[:8]] + [
+        _Read(rid, sig) for rid, sig in tie_sig.items()]
+    _cuda.reset_counts()
     t0 = time.time()
     with capture_pooled(dict(tracker_fold=3, ring_assemble=3, pair_counts=3,
                              flat_gather=9)) as captured:
-        n_warm = sum(1 for _ in bm.map_reads(warm))
-    log(f"[4] warm-up: {n_warm} reads in {time.time() - t0:.2f} s")
-    ok = recheck_captured(captured, 4)
+        warm_lines = {pf.rd_name: pf.to_line() for pf in bm.map_reads(warm)}
+    dt = time.time() - t0
+    counts = dict(_cuda.COUNTS)
+    tie_eq = {rid: strip_wall(warm_lines.get(rid, "")) == strip_wall(
+        tie_want["stable"][rid]) for rid in tie_sig}
+    for rid in tie_sig:
+        if not tie_eq[rid]:
+            log(f"[4] tie read {rid}: the card gives "
+                f"{warm_lines.get(rid)!r}, the reference rig "
+                f"{tie_want['stable'][rid]!r}")
+    tie_ran = all(counts[k] > 0 for k in POOLED_KERNELS)
+    out["real_tie_reads"] = dict(pinned=pinned, equal=tie_eq, seconds=dt,
+                                 warm_reads=len(warm), launches=counts)
+    log(f"[4] warm-up: {len(warm_lines)} reads in {dt:.2f} s; the 7 tie "
+        f"reads: {sum(tie_eq.values())}/{len(tie_eq)} lines equal to "
+        f"tie_pafs.json (mt stripped); launches "
+        + json.dumps({k: v for k, v in counts.items() if v}))
+    ok &= all(tie_eq.values()) and tie_ran and len(warm_lines) == len(warm)
+    ok &= recheck_captured(captured, 4)
     # the pair count on the live step's keys (most of them out of domain)
     if captured["pair_counts"]:
         pa_ = captured["pair_counts"][-1]
@@ -2811,27 +2860,45 @@ def detect_golden_plain():
     return {k: np.concatenate(v, 1) for k, v in outs.items()}, states
 
 
-# the CPU references the card's realtime checks are held to, in the order
-# the phases need them
+def oracle_golden():
+    """The port's oracle (``mapping/oracle.py``, host numpy, no card) on
+    the 14 golden reads of the example index: each line and its seconds."""
+    from uncalled_tpu_torch.config import Conf
+    from uncalled_tpu_torch.mapping.oracle import OracleMapper
+
+    fmi, model, th, _ = example_assets()
+    golden, sigs = golden_signals()
+    m = OracleMapper(fmi, model, th, Conf())
+    lines, secs = {}, {}
+    for rid in golden:
+        t0 = time.time()
+        lines[rid] = m.map_read(_Read(rid, sigs[rid])).to_line()
+        secs[rid] = time.time() - t0
+    return dict(lines=lines, seconds=secs)
+
+
+# the CPU references the card's checks are held to, in the order the
+# phases need them
 CPU_REFS = (("detect_golden", detect_golden_plain),
             ("noise_pooled", lambda: noise_pooled("cpu")),
             ("dump_read", lambda: rt_dump("cpu")),
             ("map_ordered", lambda: rt_map_ordered("cpu")),
             ("dsp_golden", lambda: rt_dsp_golden("cpu")),
             ("sim", lambda: rt_sim("cpu")),
+            ("oracle_golden", oracle_golden),
             ("cli", lambda: cli_small("cpu")))
 
 
-def cpu_refs_worker(path):
-    """The worker process: compute CPU_REFS on the CPU with the port's own
-    code (device="cpu"), one pickle per result as it finishes."""
+def run_jobs(path, jobs, threads):
+    """A worker process's loop: each (name, fn) of ``jobs`` in turn, one
+    pickle per result as it finishes (its error, if it raised)."""
     import pickle
     import traceback
 
     import torch
 
-    torch.set_num_threads(2)
-    for name, fn in CPU_REFS:
+    torch.set_num_threads(threads)
+    for name, fn in jobs:
         t0 = time.time()
         try:
             res = dict(ok=True, value=fn())
@@ -2844,45 +2911,53 @@ def cpu_refs_worker(path):
     return 0
 
 
-class CpuRefs:
-    """The worker process that computes CPU_REFS while the card runs phases
-    2 and 3 (no card: CUDA_VISIBLE_DEVICES is empty there)."""
+def cpu_refs_worker(path):
+    """The worker process: compute CPU_REFS on the CPU with the port's own
+    code (device="cpu")."""
+    return run_jobs(path, CPU_REFS, 2)
 
-    def __init__(self):
+
+class HostWorker:
+    """A process of this script with ``argv`` (no card: CUDA_VISIBLE_DEVICES
+    is empty there) that computes the results ``names``, each fetched by
+    ``get`` once its pickle is on disk."""
+
+    def __init__(self, tag, names, argv, env=()):
         from uncalled_tpu_torch import native
         from uncalled_tpu_torch.ops._cuda import BUILD_DIR
 
         native.available()  # build the host library before the worker runs
         os.makedirs(BUILD_DIR, exist_ok=True)
-        self.path = os.path.join(BUILD_DIR, "cpu_refs")
-        for name, _ in CPU_REFS:
+        self.path = os.path.join(BUILD_DIR, tag)
+        for name in names:
             if os.path.exists(f"{self.path}.{name}.pkl"):
                 os.remove(f"{self.path}.{name}.pkl")
         self.log = open(self.path + ".log", "w")
         self.proc = subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--cpu-refs",
-             self.path], stdout=self.log, stderr=subprocess.STDOUT,
-            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), cwd=REPO)
+            [sys.executable, os.path.abspath(__file__), *argv, self.path],
+            stdout=self.log, stderr=subprocess.STDOUT,
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES="", **dict(env)),
+            cwd=REPO)
         self.t0 = time.time()
 
-    def get(self, name, timeout=1500.0):
+    def get(self, name, timeout=1500.0, tag="cpu"):
         import pickle
 
         f = f"{self.path}.{name}.pkl"
         t0 = time.time()
         while not os.path.exists(f):
             if self.proc.poll() is not None and not os.path.exists(f):
-                raise RuntimeError(f"the CPU reference worker ended (rc "
+                raise RuntimeError(f"the host worker {self.path} ended (rc "
                                    f"{self.proc.returncode}) without {name}")
             if time.time() - t0 > timeout:
-                raise RuntimeError(f"no CPU reference {name} in {timeout} s")
+                raise RuntimeError(f"no result {name} in {timeout:.0f} s")
             time.sleep(0.5)
         with open(f, "rb") as fh:
             res = pickle.load(fh)
-        log(f"[cpu] reference {name}: {res['seconds']:.1f} s on the CPU, "
+        log(f"[{tag}] reference {name}: {res['seconds']:.1f} s on the CPU, "
             f"waited {time.time() - t0:.1f} s")
         if not res["ok"]:
-            raise RuntimeError(f"CPU reference {name} failed:\n"
+            raise RuntimeError(f"host reference {name} failed:\n"
                                + res["error"])
         return res["value"]
 
@@ -2895,6 +2970,169 @@ class CpuRefs:
                 self.proc.kill()
                 self.proc.wait()
         self.log.close()
+
+
+# ---------------------------------------------------------------------------
+# the reference rig's lines on phase 4's genome: the 7 tie reads
+# (tests/fixtures/tie_reads.npz, from bench.py's read set on the same
+# genome), mapped by the reference binary built with a stable candidate
+# sort (tie_pafs.json) and with libstdc++'s std::sort (tie_pafs_stdsort.json)
+
+TIE_FAST = ("sim_0545_bench_ref_4295489_+", "sim_0731_bench_ref_302488_+")
+TIE_SLOW = ("sim_0214_bench_ref_4050919_-", "sim_0364_bench_ref_3184616_-",
+            "sim_0631_bench_ref_1571287_+", "sim_0661_bench_ref_4308092_-",
+            "sim_0715_bench_ref_1685755_+")
+TIE_IN_PHASE4 = {214: "sim_0214_bench_ref_4050919_-",
+                 364: "sim_0364_bench_ref_3184616_-"}  # sim[i] of build_assets
+TIE_FILES = {"stable": "tie_pafs.json", "introsort": "tie_pafs_stdsort.json"}
+TIE_DEADLINE_S = 1150  # seconds since the start: phase 10 waits no longer
+
+
+def tie_fixtures():
+    """The 7 tie signals (f32) and the reference rig's lines, by tie
+    order."""
+    fx = os.path.join(REPO, "tests", "fixtures")
+    d = np.load(os.path.join(fx, "tie_reads.npz"))
+    sigs = {rid: np.asarray(d[rid], np.float32) for rid in TIE_FAST + TIE_SLOW}
+    want = {}
+    for order, fn in TIE_FILES.items():
+        with open(os.path.join(fx, fn)) as f:
+            want[order] = json.load(f)
+    return sigs, want
+
+
+def tie_oracle_worker(path, order, prefix):
+    """The worker process of one tie order: the port's oracle on the 7 tie
+    reads over phase 4's genome (the index built here, in memory, from the
+    .fa phase 4 wrote; its .uncl), one pickle a read: line, seconds,
+    events."""
+    from uncalled_tpu_torch.config import Conf
+    from uncalled_tpu_torch.index.build import build_index
+    from uncalled_tpu_torch.mapping.oracle import OracleMapper, load_uncl
+    from uncalled_tpu_torch.poremodel import load_default
+
+    os.nice(10)  # the card's phases run beside it: the main process first
+    t0 = time.time()
+    fmi = build_index(prefix + ".fa")
+    m = OracleMapper(fmi, load_default(), load_uncl(prefix + ".uncl"),
+                     Conf(), tie_order=order)
+    print(f"index n={fmi.n} in {time.time() - t0:.1f} s", flush=True)
+    sigs, _ = tie_fixtures()
+
+    def job(rid):
+        def run():
+            t1 = time.time()
+            line = m.map_read(_Read(rid, sigs[rid])).to_line()
+            return dict(line=line, events=m.n_events_mapped,
+                        seconds=time.time() - t1)
+        return rid, run
+
+    return run_jobs(path, [job(r) for r in TIE_FAST + TIE_SLOW], 1)
+
+
+class TieOracles:
+    """Two host workers, one a tie order, each one process of one torch
+    thread; started once phase 4's assets are on disk."""
+
+    def __init__(self):
+        self.workers = {}
+
+    def start(self):
+        for order in TIE_FILES:
+            self.workers[order] = HostWorker(
+                f"tie_{order}", TIE_FAST + TIE_SLOW,
+                ["--tie-oracle", order, assets_prefix()],
+                env=dict(OMP_NUM_THREADS="1", OPENBLAS_NUM_THREADS="1",
+                         MKL_NUM_THREADS="1"))
+        self.t0 = time.time()
+        log("[4] tie-read oracle workers started (stable, introsort)")
+
+    def stop(self):
+        for w in self.workers.values():
+            w.stop()
+
+
+def phase_oracle_golden(out, refs):
+    """Phase 3's host reference: the port's oracle on the 14 golden reads
+    (computed by the CPU worker), every line the golden one; and the
+    FM-range arithmetic of ``ranges.py`` on tensors on the card, equal to
+    its numpy results."""
+    import torch
+
+    from uncalled_tpu_torch import ranges
+
+    golden, _ = golden_signals()
+    res = refs.get("oracle_golden")
+    got, secs = res["lines"], res["seconds"]
+    eq = {rid: got.get(rid) == line for rid, line in golden.items()}
+    for rid in golden:
+        if not eq[rid]:
+            log(f"[3] oracle {rid}: {got.get(rid)!r}, golden {golden[rid]!r}")
+    log(f"[3] the port's oracle (host, example index): {sum(eq.values())}/"
+        f"{len(eq)} lines byte-identical to golden_pafs.json; "
+        f"{sum(secs.values()):.1f} s on the CPU, {max(secs.values()):.2f} s "
+        f"the longest read ({max(secs, key=secs.get)})")
+
+    rng = np.random.default_rng(7)
+    st = rng.integers(0, 50, (2, 1 << 16))
+    en = st + rng.integers(-3, 30, (2, 1 << 16))
+    a = (st[0], en[0], st[1], en[1])
+
+    def flat(r):
+        return [y for x in r for y in flat(x)] if isinstance(r, tuple) \
+            else [r]
+
+    r_ok = True
+    for op in ("intersects", "intersect", "merge", "recp_overlap", "split"):
+        want = flat(getattr(ranges, op)(*a))
+        got_t = flat(getattr(ranges, op)(*[torch.from_numpy(x).cuda()
+                                           for x in a]))
+        for g, w in zip(got_t, want):
+            g_np = g.cpu().numpy()
+            r_ok &= (g.device.type == "cuda" and g_np.dtype == w.dtype
+                     and np.array_equal(g_np, w))
+    log(f"[3] ranges on the card (65536 pairs): "
+        f"{'equal to' if r_ok else 'DIFFER from'} the numpy results")
+    out["oracle_golden"] = dict(equal=eq, seconds=secs, ranges_on_card=r_ok)
+    return all(eq.values()) and len(got) == len(golden) and r_ok
+
+
+def phase_tie_oracle(out, ties):
+    """Phase 10: the port's oracle on the 7 tie reads over phase 4's genome
+    in both tie orders, from the two host workers started once the assets
+    were on disk: stable lines equal tie_pafs.json and introsort lines
+    tie_pafs_stdsort.json (mt stripped)."""
+    real_assets()  # starts the workers, unless phase 4's assets exist
+    _, want = tie_fixtures()
+    ok = True
+    res = out["tie_oracle"] = {}
+    for order, w in ties.workers.items():
+        res[order] = {}
+        for rid in TIE_FAST + TIE_SLOW:
+            left = TIE_DEADLINE_S - (time.time() - _T0)
+            try:
+                r = w.get(rid, timeout=max(left, 10.0), tag="10")
+            except RuntimeError as e:
+                log(f"[10] {order} {rid}: {e}")
+                res[order][rid] = dict(error=str(e))
+                ok = False
+                continue
+            sec = r["seconds"]
+            eq = strip_wall(r["line"]) == strip_wall(want[order][rid])
+            res[order][rid] = dict(equal=eq, seconds=sec, events=r["events"])
+            log(f"[10] oracle {order} {rid}: "
+                f"{'equal to' if eq else 'DIFFERS from'} {TIE_FILES[order]}"
+                f" ({r['events']} events, {sec:.1f} s on the CPU)"
+                + ("" if eq else f": {r['line']!r} against "
+                   f"{want[order][rid]!r}"))
+            ok &= eq
+    cpu = {o: sum(v.get("seconds", 0.0) for v in r.values())
+           for o, r in res.items()}
+    log(f"[10] tie-read oracle: workers started at {ties.t0 - _T0:.1f} s, "
+        f"every result in by {time.time() - _T0:.1f} s; CPU seconds "
+        + json.dumps(cpu))
+    out["tie_oracle_window"] = (ties.t0 - _T0, time.time() - _T0)
+    return ok
 
 
 def detect_signals(rng, B, n):
@@ -3913,9 +4151,12 @@ def profile_block(bm, reads):
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9")
+    ap.add_argument("--phases", default="1,2,3,4,5,6,7,8,9,10")
     # internal: the CPU reference worker (started by the main process)
     ap.add_argument("--cpu-refs", default=None, help=argparse.SUPPRESS)
+    # internal: a tie-read oracle worker (ORDER PREFIX PATH)
+    ap.add_argument("--tie-oracle", nargs=3, default=None,
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = {int(x) for x in args.phases.split(",")}
     try:
@@ -3926,6 +4167,10 @@ def main(argv=None) -> int:
     if args.cpu_refs:
         sys.path.insert(0, REPO)
         return cpu_refs_worker(args.cpu_refs)
+    if args.tie_oracle:
+        sys.path.insert(0, REPO)
+        order, prefix, path = args.tie_oracle
+        return tie_oracle_worker(path, order, prefix)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
@@ -3941,9 +4186,14 @@ def main(argv=None) -> int:
 
     out = {"kernels": {}, "phase_seconds": {}}
     ok = True
-    # the CPU references of the realtime and CLI checks run in a worker
-    # process beside phases 1-3
-    refs = CpuRefs() if phases & {2, 3, 8} else None
+    # the CPU references of the realtime, oracle and CLI checks run in a
+    # worker process beside phases 1-3; the tie-read oracles in two more,
+    # from the moment phase 4's assets are on disk to phase 10
+    refs = HostWorker("cpu_refs", [n for n, _ in CPU_REFS],
+                      ["--cpu-refs"]) if phases & {2, 3, 8} else None
+    ties = TieOracles() if 10 in phases else None
+    if ties is not None:
+        _ON_ASSETS.append(ties.start)
     try:
         t0 = time.time()
         phase_card(out)
@@ -3954,13 +4204,15 @@ def main(argv=None) -> int:
                 (2, lambda: phase_kernels(out, rate)
                  & phase_detect(out, rate, dev, refs)),
                 (3, lambda: phase_golden(out, refs)
-                 & phase_realtime_small(out, refs)),
+                 & phase_realtime_small(out, refs)
+                 & phase_oracle_golden(out, refs)),
                 (4, lambda: phase_real(out, rate)),
                 (5, lambda: phase_classic(out)),
                 (6, lambda: phase_defaults(out)),
                 (7, lambda: phase_realtime(out)),
                 (8, lambda: phase_cli(out, refs)),
-                (9, lambda: phase_sharded(out))):
+                (9, lambda: phase_sharded(out)),
+                (10, lambda: phase_tie_oracle(out, ties))):
             if n in phases:
                 t0 = time.time()
                 try:
@@ -3974,8 +4226,9 @@ def main(argv=None) -> int:
                 out["phase_seconds"][n] = time.time() - t0
                 log(f"[{n}] phase {n} took {out['phase_seconds'][n]:.1f} s")
     finally:
-        if refs is not None:
-            refs.stop()
+        for w in (refs, ties):
+            if w is not None:
+                w.stop()
     from uncalled_tpu_torch.ops._cuda import BUILD_DIR
 
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -3984,7 +4237,7 @@ def main(argv=None) -> int:
     print(out["card"])
     print(json.dumps({"kernels": [dict(name=k, **v)
                                   for k, v in out["kernels"].items()]}))
-    if not ok or phases != set(range(1, 10)):
+    if not ok or phases != set(range(1, 11)):
         log("chip_smoke: FAILED" if not ok else "chip_smoke: partial run")
         return 1
     print(json.dumps({"ok": True, "device": {

@@ -199,6 +199,21 @@ def test_scan_covers_the_sharded_layer():
         assert m in mods, m
 
 
+def test_scan_covers_the_host_reference_modules():
+    """The import checks above reach the oracle, its introsort and the
+    FM-range arithmetic; the oracle runs on the host and takes no device."""
+    import inspect
+
+    from uncalled_tpu_torch.mapping.oracle import OracleMapper
+
+    mods = _package_modules()
+    for m in ("uncalled_tpu_torch.mapping.introsort",
+              "uncalled_tpu_torch.mapping.oracle",
+              "uncalled_tpu_torch.ranges"):
+        assert m in mods, m
+    assert "device" not in inspect.signature(OracleMapper).parameters
+
+
 def test_sharded_engines_default_to_cuda(tmp_path):
     """A sharded engine built without device= takes the rank's card, and
     raises without one; with device="cpu" it builds.  One gloo rank on a
