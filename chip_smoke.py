@@ -41,19 +41,26 @@ verdict, printed only when every phase passed):
    fold (B=512, half the threads a read), pair count into [512, 1024]
    and ring assembly (S=147456); the streaming
    event detector (``csrc/detect.cu``) on seeded pA signal at B=512,
-   S=4096 over three carried blocks with rows reset mid-stream (against
-   the plain version on the card) and on the 14 golden reads as rows at
-   S=4096 and S=512 (against the plain version's outputs and states from
-   the CPU worker below), with its device time, byte bound and serial
-   bound (S steps of the scan, each timed by a probe of the kernel's own
-   step on one thread); the sharded engines' two kernels: the shard-local
+   S=4096 over three carried blocks with rows reset mid-stream and on a
+   zero-padded block of reads of random lengths (against the plain version
+   on the card) and on the 14 golden reads as rows at S=4096 and S=512
+   (against the plain version's outputs and states from the CPU worker
+   below), with its device time on the seeded and the padded block, the
+   repair rounds of its scan, its bound (the larger of its bytes and its
+   f64 operations) and the old design's serial floor (S steps of a serial
+   scan, one step timed by a probe on one thread), and its t-stats'
+   divisions by the window widths against the division instructions on
+   every f32 input and 2^31 f64 ones; the sharded engines'
+   two kernels: the shard-local
    row gather (``csrc/shard.cu``) over phase 4's occ_rows split in 2 and
    in 4 (2*SC rows, F=6) and its 1/32 SA sample (RT rows, F=1), every
    block, rows in no shard and the padding rows among them, and the
    sharded LF-walk's local run (``csrc/sa_lookup.cu`` ``sa_walk_step``)
    on every row of the example index at intv 32 and 24 on both blocks of
    a split in 2, its rounds summed into the whole walk against
-   ``sa_lookup``; each timed at one rank's shapes in phase 9 (c);
+   ``sa_lookup``; each timed at one rank's shapes in phase 9 (c), the
+   walk step with its chain bound (longest local run x a measured
+   dependent-load latency);
 3. the 14 golden reads on the example index through ``BatchMapper``, on
    the pooled engine and on the classic engine, each with the full SA and
    with the 1/32 SA sample (the LF-walk kernel, in every engine of the
@@ -257,8 +264,11 @@ KERNELS = {
         route="cuda", source="uncalled_tpu_torch/csrc/sa_lookup.cu",
         replaces="uncalled_tpu/mapping/engine.py:338-381"),
 }
-# the device event detector (phase 2 at B=512, S=4096 over three blocks)
+# the device event detector (phase 2 at B=512, S=4096 over three blocks);
+# its f64 operations a sample and the H100 SXM's FP64 vector peak (NVIDIA
+# data sheet), its operation bound
 DET_B, DET_S, DET_NB = 512, 4096, 3
+DET_F64_OPS, DET_F64_PEAK_TFLOPS = 29, 34.0
 # phase 3's realtime cases: simulated seconds of the deplete sim case (the
 # JAX test runs 120; its six reads cycle; cut from 20 to 10 for phase 8),
 # events in the debug dump
@@ -3168,10 +3178,14 @@ def phase_detect(out, rate, dev, refs):
     rows reset mid-stream (the plain version on the card), and the 14
     golden reads (the real read among them) as rows at S=4096 and S=512
     (against the plain version's blocks of 4096 from the CPU worker:
-    outputs do not depend on the block size); its device ms, byte bound
-    and serial bound (a probe of one sample's dependent chain)."""
+    outputs do not depend on the block size), and a zero-padded block
+    (reads of random lengths padded to S, as a refill wave's last block);
+    its device ms on the seeded and the padded block, the repair rounds of
+    its scan, its bound (max of bytes and f64 operations) and the old
+    design's serial floor (a probe of one sample's serial step)."""
     import torch
 
+    from uncalled_tpu_torch.ops import _cuda
     from uncalled_tpu_torch.ops import events as ev
 
     ok = True
@@ -3246,30 +3260,74 @@ def phase_detect(out, rate, dev, refs):
             f"{'bit-equal' if real_ok else 'MISMATCH'}")
         ok &= out_ok and st_ok and real_ok
 
-    # time and bounds at the headline shape (block 0 of the seeded signal)
+    # the t-stats' divisions by the window widths (three operations each,
+    # csrc/detect.cu ddiv_w / fdiv_w) against the division instructions:
+    # every f32 input and 2^30 hashed f64 inputs, at w = 3 and 6
+    chk = torch.zeros(3, dtype=torch.int64, device=dev)
+    _cuda.launch("probe_div_check", 1 << 30, chk)
+    bad32, bad64, fast64 = chk.tolist()
+    log(f"[2] detect: width divisions against div.rn: {bad32} of 2^33 f32 "
+        f"and {bad64} of 2^31 f64 quotients differ ({fast64} f64 inputs on "
+        "the three-operation path)")
+    ok &= bad32 == 0 and bad64 == 0 and fast64 > 0
+
+    # a refill wave's last block: reads of random lengths zero-padded to
+    # the block (BatchMapper._prepare_wave), NaN t-stats over each tail
+    prng = np.random.default_rng(20261019)
+    pad = detect_signals(prng, B, S)
+    lens = prng.integers(S // 8, S, B)
+    lens[:: 8] = S
+    pad[np.arange(S)[None, :] >= lens[:, None]] = 0.0
+    pad_d = torch.from_numpy(pad).to(dev)
+    stp = ev.make_detector_state(B, dev)
+    ok &= check(f"detect[zero-padded B={B} S={S}, rows of "
+                f"{int(lens.min())}-{S} samples]",
+                ev.detect_block(stp, pad_d), ev.detect_block_plain(stp, pad_d))
+
+    # time, repair rounds and bounds at the headline shape (block 0 of the
+    # seeded signal), the zero-padded block beside it
     blk0 = sig_d[:, :S].contiguous()
+    rounds = {}
+    for name, st_, x in (("seeded", st0, blk0), ("padded", stp, pad_d)):
+        r = torch.zeros(B, dtype=torch.int32, device=dev)
+        ev.detect_block(st_, x, rounds=r)
+        r = r.cpu().numpy()
+        rounds[name] = dict(max=int(r.max()), mean=float(r.mean()),
+                            hist=np.bincount(r).tolist())
+    log("[2] detect: repair rounds a row " + json.dumps(rounds))
     src = []
-    ms, = device_ms([(lambda: ev.detect_block(st0, blk0), 20)],
-                    tag="detect", sources=src)
+    ms, pad_ms = device_ms([(lambda: ev.detect_block(st0, blk0), 20),
+                            (lambda: ev.detect_block(stp, pad_d), 20)],
+                           tag="detect", sources=src)
     call_ms = time_ms(lambda: ev.detect_block(st0, blk0))
     plain_ms = time_ms(lambda: ev.detect_block_plain(st0, blk0), reps=1,
                        warm=0)
     state_bytes = sum(v.element_size() * v.numel() for v in st0.values())
     nbytes = B * S * (4 + 1 + 4 + 4 + 4 + 4) + 2 * state_bytes
-    # the serial bound: the scan's S dependent steps; the prefix sums are
-    # exact (checked above), so a log-depth scan gives their bits and their
-    # serial adds in the kernel are its design, not the function's work
+    byte_ms = nbytes / rate * 1e3
+    # the f64 operations of the function, each one (divides and square
+    # roots included): a sample's two prefix sums and the carry added to
+    # each (4), each window's t-stat (4 window sums, 2 divides, 3 adds,
+    # a square root and a divide: 11, twice), its event's mean (2 subtracts
+    # and a divide: 3); at the H100 SXM's FP64 vector peak (data sheet)
+    ops = B * S * DET_F64_OPS
+    op_ms = ops / (DET_F64_PEAK_TFLOPS * 1e12) * 1e3
+    # the old design's floor: S steps of a serial scan, one step probed
+    # (the function asks for no such chain; an informative field)
     scan_ns = scan_step_ns(dev)
     serial_ms = S * scan_ns * 1e-6
-    byte_ms = nbytes / rate * 1e3
     out["kernels"]["detect"] = dict(
         KERNELS["detect"], launches=0, max_abs_err=0.0 if ok else None,
         ms=ms, ms_source=src[0], plain_ms=plain_ms,
-        bound_ms=max(byte_ms, serial_ms),
-        bound_by="operations" if serial_ms > byte_ms else "bytes",
+        bound_ms=max(byte_ms, op_ms),
+        bound_by="operations" if op_ms > byte_ms else "bytes",
         library_ms=None, call_ms=call_ms, byte_bound_ms=byte_ms,
+        op_bound_ms=op_ms, f64_ops=ops,
+        f64_peak=f"{DET_F64_PEAK_TFLOPS} TFLOP/s FP64 vector (H100 SXM)",
+        padded_ms=pad_ms, padded_ms_source=src[1], rounds=rounds,
         serial_bound_ms=serial_ms, scan_step_ns=scan_ns, bytes=nbytes,
-        shape=f"B={B} S={S} (seeded pA signal)")
+        shape=f"B={B} S={S} (seeded pA signal; padded_ms: the zero-padded "
+              "block)")
     log("[2] detect: " + json.dumps(out["kernels"]["detect"]))
     return ok
 
@@ -3902,6 +3960,7 @@ def shard_kernels(out, rate, dev):
     r = T(rng.integers(0, n + 1, RT_FULL // 2).astype(np.int32))
     got = sl.sa_walk_step(blk, L2, r, n, primary, SA_INTV, 0)
     taken = got[1]
+    longest = int(taken.max())
     ok &= report(res, "sa_walk_step", got,
                  sl.sa_walk_step_plain(blk, L2, r, n, primary, SA_INTV, 0),
                  rate, lambda: sl.sa_walk_step(blk, L2, r, n, primary,
@@ -3912,7 +3971,16 @@ def shard_kernels(out, rate, dev):
                  shape=f"block {tuple(blk.shape)} of {len(occ)} rows, "
                        f"{r.numel()} rows: {int((taken > 0).sum())} owned "
                        f"and live, {int(taken.sum())} local steps, the "
-                       f"longest run {int(taken.max())}")
+                       f"longest run {longest}")
+    # its chain bound, as sa_lookup's: the longest local run of dependent
+    # bucket-row loads x one dependent load's measured latency
+    lat = load_latency_ns(dev)
+    res["sa_walk_step"].update(chain_bound_ms=longest * lat * 1e-6,
+                               load_latency_ns=lat, run_longest=longest)
+    log("[2] sa_walk_step chain bound: " + json.dumps(
+        {k: res["sa_walk_step"][k] for k in (
+            "ms", "bound_ms", "chain_bound_ms", "load_latency_ns",
+            "run_longest")}))
     return ok
 
 
@@ -4059,7 +4127,7 @@ def phase_sharded(out):
                               "ms_per_step", "collective_calls",
                               "timed_block", "walk_steps_per_event",
                               "walk_rounds_per_event", "ejects", "shapes",
-                              "launches_per_step")},
+                              "launches", "launches_per_step")},
         table_bytes_per_rank=[r["table_bytes"] for r in ranks],
         table_bytes_one_card=one_card, wall_with_start_s=wall,
         rank_seconds=[r["seconds"] for r in ranks],

@@ -3,9 +3,9 @@ the plain version the CPU runs) against the JAX ``detect_block``, bit for
 bit: every output and every state field after every block, at blocks of 512
 and 4096 samples, with rows reset mid-stream; batch against solo; the
 exactness precondition on every signal used; and a numpy replay of the
-prefix-sum order of ``csrc/detect.cu``.  The CUDA kernel itself runs on the
-card (``chip_smoke.py`` phase 2); here its wrapper's launch path is checked
-with a stand-in launcher."""
+parallel prefix-scan order of ``csrc/detect.cu``.  The CUDA kernel itself
+runs on the card (``chip_smoke.py`` phase 2); here its wrapper's launch
+path is checked with a stand-in launcher."""
 
 import os
 
@@ -68,12 +68,51 @@ def assert_same(want, got, what):
     assert not bad.any(), (what, int(bad.sum()), np.argwhere(bad)[:5])
 
 
-def replay_prefix(xs, p0):
-    """csrc/detect.cu's prefix order: a left-to-right f64 sum from 0 over
-    the block's samples (np.add.accumulate on a 1-D array is sequential),
-    then the carry added to every partial sum."""
-    run = np.concatenate([[0.0], np.add.accumulate(xs.astype(np.float64))])
-    return run + p0
+def replay_prefix(xs, p0, nt=256, seg=16):
+    """csrc/detect.cu's prefix order over a block's TAIL + S samples: in
+    chunks of nt * seg samples, each chunk's prefixes P[c0 + q] (q < n +
+    20, the windows' reach past its n samples) by one scan from the exact
+    run at c0, the chunk's own prefixes kept.  In the scan each of the nt
+    threads sums its v = ceil(count / nt) samples left to right
+    (np.add.accumulate is sequential), each warp of 32 threads scans its
+    thread totals by shuffles (Hillis-Steele: at offsets 1, 2, 4, 8, 16 a
+    lane adds the lane that far below), a warp's offset is the earlier
+    warps' totals summed left to right from 0, and a sample's partial sum
+    is ((carry + warp offset) + lane offset) + its thread's running sum.
+    The block's carry p0 is added to every partial sum."""
+    x = np.asarray(xs, np.float64)
+    n_p = len(x) + 1
+    S = len(x) - 12
+    ch = nt * seg
+    lane = np.arange(32)
+
+    def scan(part_x, carry):
+        n = len(part_x)
+        v = -(-n // nt)
+        part = np.zeros(nt * v)
+        part[:n] = part_x
+        acc = np.add.accumulate(part.reshape(nt, v), axis=1)
+        s = acc[:, -1].reshape(nt // 32, 32)
+        for off in (1, 2, 4, 8, 16):
+            up = np.concatenate([np.zeros((len(s), off)), s[:, :-off]], 1)
+            s = np.where(lane >= off, up + s, s)
+        excl = np.concatenate([np.zeros((len(s), 1)), s[:, :-1]], 1)
+        woff = np.zeros(len(s))
+        for w in range(1, len(s)):
+            woff[w] = woff[w - 1] + s[w - 1, -1]
+        base = ((carry + woff[:, None]) + excl).reshape(nt, 1)
+        return np.concatenate([[carry], (base + acc).reshape(-1)[:n]])
+
+    out = np.empty(n_p)
+    r = 0.0
+    for c0 in range(0, S, ch):
+        n = min(ch, S - c0)
+        nq = min(n + 20, n_p - c0)
+        run = scan(x[c0: c0 + nq - 1], r)
+        keep = nq if c0 + n == S else n
+        out[c0: c0 + keep] = run[:keep]
+        r = run[n]
+    return out + p0
 
 
 # S = 24 = 2 * TAIL: the smallest block JAX takes
@@ -120,23 +159,33 @@ def test_detect_block_matches_jax(S, nb):
 
 
 def test_tstats_prefixes_replay_kernel_order():
-    """Every prefix array the plain t-stats build equals the kernel's
-    left-to-right order plus the carry, on a carried block."""
+    """Every prefix array the plain t-stats build (a left-to-right
+    cumsum) equals the kernel's parallel scan order plus the carry, on a
+    carried block of exact signals (with 32 threads a chunk is 512
+    samples, so the chunk carry runs long)."""
     from uncalled_tpu_torch.ops import events as te
 
-    S = 512
-    sig = signals(2 * S)
-    st = te.make_detector_state(sig.shape[0])
-    st, _ = te.detect_block(st, torch.from_numpy(sig[:, :S]))
-    blk = sig[:, S:]
-    _, _, S1, SQ1 = te._tstats_block(torch.from_numpy(blk), st["tail"],
-                                     st["S0"], st["SQ0"], st["t"])
-    xs = np.concatenate([st["tail"].numpy(), blk], 1)
-    for r in range(sig.shape[0]):
-        assert_same(replay_prefix(xs[r], st["S0"].numpy()[r]),
-                    S1[r].numpy(), f"S1 row {r}")
-        assert_same(replay_prefix(xs[r] * xs[r], st["SQ0"].numpy()[r]),
-                    SQ1[r].numpy(), f"SQ1 row {r}")
+    for S, nt in ((512, 256), (4096, 256), (4096, 32)):
+        sig = signals(2 * S)
+        for row in sig:
+            assert te.prefix_sums_exact(row)
+        st = te.make_detector_state(sig.shape[0])
+        st, _ = te.detect_block(st, torch.from_numpy(sig[:, :S]))
+        blk = sig[:, S:]
+        _, _, S1, SQ1 = te._tstats_block(torch.from_numpy(blk), st["tail"],
+                                         st["S0"], st["SQ0"], st["t"])
+        xs = np.concatenate([st["tail"].numpy(), blk], 1)
+        for r in range(sig.shape[0]):
+            assert_same(replay_prefix(xs[r], st["S0"].numpy()[r], nt),
+                        S1[r].numpy(), f"S1 row {r}")
+            assert_same(replay_prefix(xs[r] * xs[r], st["SQ0"].numpy()[r],
+                                      nt), SQ1[r].numpy(), f"SQ1 row {r}")
+    # the order is the kernel's own: on sums that round it differs from
+    # the left-to-right one
+    x = np.array([1e-3, 3e7] * 700, np.float32)
+    assert not te.prefix_sums_exact(x)
+    seq = np.concatenate([[0.0], np.add.accumulate(x.astype(np.float64))])
+    assert (bits(replay_prefix(x, 0.0)) != bits(seq)).any()
 
 
 def test_detect_block_batch_equals_solo():
@@ -214,9 +263,10 @@ def test_reset_detector_rows_matches_jax():
 
 def test_detect_block_launch_off_the_cpu(monkeypatch):
     """A signal off the CPU goes to the launcher with every state tensor,
-    the new state, the outputs and the prefix scratch, and counts one
-    launch; the plain version never runs there; short blocks, wrong
-    dtypes and wrong state shapes raise."""
+    the new state, the outputs and the rounds tensor (the caller's, or a
+    scratch one; the kernel keeps its prefix sums in shared memory), and
+    counts one launch; the plain version never runs there; short blocks,
+    wrong dtypes, wrong state shapes and a wrong rounds tensor raise."""
     from uncalled_tpu_torch.ops import _cuda
     from uncalled_tpu_torch.ops import events as te
 
@@ -244,8 +294,16 @@ def test_detect_block_launch_off_the_cpu(monkeypatch):
     assert name == "detect_block_f32" and ints == (B, S)
     assert len(shapes) == 1 + 2 * len(te.STATE_KEYS) + len(te.OUT_KEYS) + 1
     assert shapes[0] == ((B, S), torch.float32)
-    assert shapes[-1] == ((2, B, S + te.TAIL + 1), torch.float64)
+    assert shapes[-1] == ((B,), torch.int32)
     assert _cuda.COUNTS == dict(dict.fromkeys(_cuda.COUNTS, 0), detect=1)
+    rounds = torch.empty(B, dtype=torch.int32, device="meta")
+    te.detect_block(st, sig, rounds=rounds)
+    assert seen[-1][1][-1] == ((B,), torch.int32)
+    assert _cuda.COUNTS["detect"] == 2
+    with pytest.raises(ValueError):
+        te.detect_block(st, sig, rounds=rounds[:-1])
+    with pytest.raises(TypeError):
+        te.detect_block(st, sig, rounds=rounds.long())
     with pytest.raises(ValueError, match="2 \\* TAIL"):
         te.detect_block(st, sig[:, : 2 * te.TAIL - 1])
     with pytest.raises(TypeError):

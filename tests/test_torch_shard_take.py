@@ -306,23 +306,56 @@ def test_shard_take_plain_matches_jax_formula(tables, nix):
 
 
 def test_shard_take_kernel_model(tables):
-    """csrc/shard.cu's index arithmetic replayed in numpy, one output word
-    a thread (e -> row e // F, lane e % F), against the plain version."""
+    """csrc/shard.cu's indexing replayed in numpy: the 32-bit unsigned
+    ownership test (row - lo mod 2^32 below per); F = 6 a warp of 32 rows,
+    lane l moving the warp's 8-byte words l, l + 32 and l + 64 (word w is
+    part w % 3 of the warp's row w // 3, whose index comes from lane
+    w // 3), the last warp cut at N; F = 1 one thread a row; zeros where the
+    row is not owned.  Against the plain version on both blocks of a split
+    in 2, with rows in no shard and at the int32 extremes, N not a
+    multiple of 32."""
+    _, _, t = tables
+    for key in ("occ_rows", "sa"):
+        _kernel_model_case(t, key)
+
+
+def _kernel_model_case(t, key):
     from uncalled_tpu_torch.ops.shard_take import shard_take_plain
 
-    _, _, t = tables
-    tbl = _pad(t["occ_rows"], 2)
+    tbl = _pad(t[key], 2)
     per = len(tbl) // 2
-    rows = query_rows(len(t["occ_rows"]), 2, np.random.default_rng(3))
-    flat_rows = rows.reshape(-1).astype(np.int64)
+    rows = query_rows(len(t[key]), 2, np.random.default_rng(3))
+    rows = np.concatenate([rows.reshape(-1), np.array(
+        [-(2**31), -1, 0, per - 1, per, 2 * per - 1, 2 * per, 2**31 - 1],
+        np.int32)]).astype(np.int32)
+    N = len(rows)
+    assert N % 32
     for lo in (0, per):
-        blk = tbl[lo: lo + per]
-        F = blk.shape[1]
-        e = np.arange(flat_rows.size * F)
-        i, f = e // F, e % F
-        r = flat_rows[i] - lo
-        ok = (r >= 0) & (r < per)
-        out = np.where(ok, blk.reshape(-1)[np.where(ok, r * F + f, 0)], 0)
+        blk = np.ascontiguousarray(tbl[lo: lo + per])
+        F = blk.shape[1] if blk.ndim == 2 else 1
+        assert F == (6 if key == "occ_rows" else 1)
+        r = (rows.astype(np.uint32) - np.uint32(lo)).astype(np.uint32)
+        if F == 6:
+            words = blk.view(np.int64).reshape(-1)
+            out = np.zeros(3 * N, np.int64)
+            for r0 in range(0, N, 32):
+                nrow = min(32, N - r0)
+                rl = np.full(32, 0xFFFFFFFF, np.uint32)
+                rl[:nrow] = r[r0: r0 + nrow]
+                for q in range(3):
+                    word = np.arange(32) + 32 * q
+                    row = word // 3
+                    rr = rl[row]
+                    own = rr < np.uint32(per)
+                    src = np.where(own, rr.astype(np.int64) * 3
+                                   + (word - row * 3), 0)
+                    v = np.where(own, words[src], 0)
+                    keep = row < nrow
+                    out[r0 * 3 + word[keep]] = v[keep]
+            out = out.view(np.int32)
+        else:
+            own = r < np.uint32(per)
+            out = np.where(own, blk[np.where(own, r, 0)], 0)
         want = shard_take_plain(_t(blk), _t(rows), lo).numpy()
         assert np.array_equal(out.reshape(want.shape).astype(np.int32), want)
 
@@ -435,6 +468,9 @@ def test_launch_off_the_cpu(monkeypatch):
         lambda: st.shard_take(meta(per, 6, dt=torch.float32), meta(64), 0),
         lambda: st.shard_take(meta(per, 6, 2), meta(64), 0),
         lambda: st.shard_take(meta(per, 6), meta(64), -1),
+        lambda: st.shard_take(meta(per, 4), meta(64), 0),
+        lambda: st.shard_take(meta(per * 6 + 1)[1:].view(per, 6), meta(64),
+                              0),
         lambda: sl.sa_walk_step(meta(per, 4), meta(5), meta(64), n, primary,
                                 32, 0),
         lambda: sl.sa_walk_step(meta(per, 6), meta(5), meta(64), n, primary,

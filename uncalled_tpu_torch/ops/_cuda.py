@@ -53,6 +53,7 @@ _FUNCS = {
     "probe_empty": ("probe", "iii"),
     "probe_chase": ("probe", "pip"),
     "probe_detect_chain": ("detect", "ip"),
+    "probe_div_check": ("detect", "ip"),
 }
 
 COUNTS = {

@@ -35,11 +35,11 @@ Two implementations:
 
 Bit-exactness with the JAX function rests on one precondition: every f64
 prefix sum of the signal (of x and of the f32 x*x) is exact.  XLA's f64
-cumsum is not a left-to-right sum, while ``torch.cumsum`` on the CPU and
-the kernel are; where every partial sum is exact the order does not
-matter.  :func:`prefix_sums_exact` checks a sufficient condition (the sum
-of |terms| below 2^53 times the terms' finest ulp); signals in pA meet it
-(the golden sims span 43.9-137.2 pA, the real read 5.2-12194 pA).
+cumsum is not a left-to-right sum, ``torch.cumsum`` on the CPU is, and the
+kernel sums by a parallel scan; where every partial sum is exact the order
+does not matter.  :func:`prefix_sums_exact` checks a sufficient condition
+(the sum of |terms| below 2^53 times the terms' finest ulp); signals in pA
+meet it (the golden sims span 43.9-137.2 pA, the real read 5.2-12194 pA).
 Beyond that, the JAX function on the CPU runs with f32 subnormals flushed
 (inputs and results), and ``jnp.maximum`` propagates NaN and returns +0
 for max(-0, 0): both versions here do the same.
@@ -487,12 +487,15 @@ def detect_block_plain(state: dict, sig):
     return new, out
 
 
-def detect_block(state: dict, sig):
+def detect_block(state: dict, sig, rounds=None):
     """Advance detection over one [B, S] signal block (S >= 2 * TAIL).
 
     Returns (state', out) as the JAX ``detect_block``.  CPU tensors run
     :func:`detect_block_plain`; CUDA tensors launch ``csrc/detect.cu``
-    (one block per row) or raise."""
+    (one block per row, a segmented speculative scan) or raise.  On the
+    card ``rounds``, an int32 [B] tensor, receives each row's repair
+    rounds of that scan (a measurement; without it a scratch tensor
+    does)."""
     from . import _cuda
 
     if sig.device.type == "cpu":
@@ -516,14 +519,18 @@ def detect_block(state: dict, sig):
         ("fired", torch.bool), ("mean", torch.float32),
         ("stdv", torch.float32), ("start", torch.int32),
         ("length", torch.float32))}
-    # scratch: the block's global f64 prefix arrays
-    pref = torch.empty((2, B, S + TAIL + 1), dtype=torch.float64, device=dev)
+    if rounds is None:
+        rounds = torch.empty(B, dtype=torch.int32, device=dev)
+    _cuda.check(rounds, "detect_block.rounds", (torch.int32,), 1, dev)
+    if rounds.shape[0] != B:
+        raise ValueError(f"detect_block.rounds: {rounds.shape[0]} rows, "
+                         f"expected {B}")
     if B:
         _cuda.launch(
             "detect_block_f32",
             [sig] + [state[k] for k in STATE_KEYS]
             + [new[k] for k in STATE_KEYS] + [out[k] for k in OUT_KEYS]
-            + [pref], B, S)
+            + [rounds], B, S)
         _cuda.COUNTS["detect"] += 1
     return new, out
 

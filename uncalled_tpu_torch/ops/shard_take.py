@@ -9,9 +9,10 @@ process group (:meth:`ShardContext.all_reduce`) combines the answers.
 Every table is int32, so one owner's word plus zeros is exact in any order.
 
 ``shard_take`` runs the plain version for tensors on the CPU and launches
-the hand-written kernel (``csrc/shard.cu``, one thread an output word) for
-tensors on the card, where it raises on anything the kernel does not take;
-there is no fallback.
+the hand-written kernel (``csrc/shard.cu``: a warp of 32 rows for the
+6-word ``occ_rows``, one thread a row for the 1-word tables) for tensors on
+the card, where it raises on anything the kernel does not take; there is
+no fallback.
 """
 
 from __future__ import annotations
@@ -96,7 +97,8 @@ def shard_take_plain(tbl, rows, lo: int):
 def shard_take(tbl, rows, lo: int):
     """The shard-local gather of :func:`shard_take_plain`, on the card one
     launch of ``csrc/shard.cu``; ``tbl`` is an int32 [per] or [per, F]
-    block, ``rows`` int32 of any shape."""
+    block (F = 1 or 6, the widths of the sharded tables; an F = 6 block
+    8-byte aligned), ``rows`` int32 of any shape."""
     if rows.device.type == "cpu":
         return shard_take_plain(tbl, rows, lo)
     dev = rows.device
@@ -107,6 +109,12 @@ def shard_take(tbl, rows, lo: int):
     _cuda.check(tbl, "shard_take.tbl", (I32,), tbl.dim(), dev)
     per = tbl.shape[0]
     F = tbl.shape[1] if tbl.dim() == 2 else 1
+    if F not in (1, 6):
+        raise ValueError(f"shard_take: rows of {F} words; the kernel takes "
+                         "1 or 6")
+    if F == 6 and tbl.storage_offset() % 2:
+        raise ValueError("shard_take: a [per, 6] block must start 8-byte "
+                         "aligned (three 8-byte words a row)")
     if not (0 <= lo and lo + per <= _I32_MAX
             and rows.numel() <= _I32_MAX):
         raise ValueError(f"shard_take: block [{lo}, {lo + per}) or "
