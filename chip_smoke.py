@@ -8,7 +8,9 @@ Phases (each prints its own lines; the last line of stdout is the JSON
 verdict, printed only when every phase passed):
 
 1. the card (``nvidia-smi`` name and power limit), torch/CUDA versions,
-   and the build of every kernel from ``uncalled_tpu_torch/csrc``;
+   and the build of every kernel from ``uncalled_tpu_torch/csrc`` (ptxas's
+   registers, stack and spills; the LF-walk kernels' local-memory
+   instructions in ``cuobjdump -sass``);
 2. each kernel against its plain PyTorch version on the card, on seeded
    inputs at the main paths' full shapes (pooled: B=256, S=98304,
    SC=122880, CL=2048, RT=6144, RING=23 (and an S with S*RING % 4 != 0),
@@ -60,7 +62,9 @@ verdict, printed only when every phase passed):
    a split in 2, its rounds summed into the whole walk against
    ``sa_lookup``; each timed at one rank's shapes in phase 9 (c), the
    walk step with its chain bound (longest local run x a measured
-   dependent-load latency);
+   dependent-load latency), its step's latency on one thread over the
+   genome's real LF chain (``probe_lf_chain``) and its floor (the same
+   launch on rows that take no step);
 3. the 14 golden reads on the example index through ``BatchMapper``, on
    the pooled engine and on the classic engine, each with the full SA and
    with the 1/32 SA sample (the LF-walk kernel, in every engine of the
@@ -99,9 +103,12 @@ verdict, printed only when every phase passed):
    LF-walk lookup on the genome's index (seeded rows at RT and B*R with
    the ends, the primary row and the 64 longest walks, against the plain
    version and the walk model from the full SA; its device time, byte and
-   chain bounds), and the first 256 timed reads again with the 1/32 SA
+   chain bounds, its step's latency and floor as the walk step's, and its
+   time warm and after an L2 flush by CUDA events), and the first 256
+   timed reads again with the 1/32 SA
    sample at B=256: lines equal to the full SA's, ms and launches per
-   step, the SA's and the index's device bytes, live lookups re-checked;
+   step, the SA's and the index's device bytes, live lookups re-checked,
+   the lookup's device time a launch inside a profiled step;
 5. classic at real size: the same genome and reads, ``pooled = False`` at
    the conf defaults (B=64, P=1024, C=1024, CE=1280, R=256, CL=1024, T=64
    and the default remap ladder), 8 warm-up + 64 timed reads, with the
@@ -983,6 +990,37 @@ def phase_card(out):
             for line in f:
                 if "registers" in line or "spill" in line:
                     log(f"[1] ptxas {stem}: {line.strip()}")
+    out["sa_lookup_local_memory"] = local = sass_local_memory("sa_lookup")
+    log("[1] SASS sa_lookup: local-memory instructions (LDL, STL) per "
+        "kernel: " + json.dumps(local))
+
+
+def sass_local_memory(stem):
+    """Local-memory instructions (LDL, STL) of each kernel in a built
+    library, from ``cuobjdump -sass`` (whose listing is kept beside the
+    library); None where the toolkit has no cuobjdump."""
+    from uncalled_tpu_torch.ops import _cuda
+
+    exe = os.path.join(os.path.dirname(_cuda._nvcc()), "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    so = os.path.join(_cuda.BUILD_DIR, f"lib{stem}.so")
+    sass = subprocess.run([exe, "-sass", so], capture_output=True, text=True,
+                          timeout=120).stdout
+    with open(os.path.join(_cuda.BUILD_DIR, stem + ".sass"), "w") as f:
+        f.write(sass)
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            # the kernel's name and template flag from its mangled name
+            k = re.search(r"\d+([a-z_]+_kernel)ILb([01])E", m.group(1))
+            fn = (f"{k.group(1)}<{'true' if k.group(2) == '1' else 'false'}>"
+                  if k else m.group(1))
+            counts[fn] = 0
+        elif fn and re.search(r"\b(LDL|STL)\b", line):
+            counts[fn] += 1
+    return counts
 
 
 def phase_kernels(out, rate):
@@ -2273,6 +2311,67 @@ def load_latency_ns(dev, n_words=7 << 18, steps=(20000, 60000)):
     return (ms[1] - ms[0]) * 1e6 / (steps[1] - steps[0])
 
 
+def probe_lf_chain(kernel, occ, samp, L2, n, primary, sa_full, dev,
+                   steps=(20000, 60000)):
+    """Nanoseconds of one step of an LF-walk kernel (``"sa_lookup"`` or
+    ``"sa_walk_step"``), and whether its walks came out right: one thread
+    walks the index's real LF chain from the row of SA value k - 1 at
+    intv = 2^30, where only row 0 ends a walk, so the walk takes exactly k
+    steps (SA values k - 1 ... 0, then the primary row's step to row 0).
+    Two k, so the launch cancels out of the difference.  The kernel's own
+    loop runs, through its C launcher (no count): ``sa_lookup`` gives
+    samp[0] + k, ``sa_walk_step`` over the whole table as one block
+    (0, k)."""
+    import torch
+
+    from uncalled_tpu_torch.ops import _cuda
+
+    intv = 1 << 30
+    assert n < intv
+    sa = np.asarray(sa_full)
+    res = torch.empty(2, dtype=torch.int32, device=dev)
+    ms, ok = [], True
+    for k in steps:
+        row = torch.tensor([int(np.flatnonzero(sa == k - 1)[0])],
+                           dtype=torch.int32, device=dev)
+        if kernel == "sa_lookup":
+            args = ("sa_lookup_i32", occ, samp, L2, row, res, 1, n, primary,
+                    intv)
+            want = [int(samp[0]) + k]
+        else:
+            args = ("sa_walk_step_i32", occ, L2, row, res, 1, n, primary,
+                    intv, 0, occ.shape[0])
+            want = [0, k]
+        # CUDA events: the difference of two single-thread chains cancels
+        # the launch (the profiler lost these one-block launches in a run)
+        ms.append(time_ms(lambda a=args: _cuda.launch(*a), reps=5))
+        ok &= res.cpu().tolist()[:len(want)] == want
+    return (ms[1] - ms[0]) * 1e6 / (steps[1] - steps[0]), ok
+
+
+def queued_ms(fn, flush_mb=0, reps=10):
+    """Median milliseconds of ``fn()`` by CUDA events, each call queued
+    behind a spin of the card so that the events hold the device's time and
+    not the host's issue; with ``flush_mb`` MB written before each call
+    (more than the 50 MB L2), the call finds its tables cold."""
+    import torch
+
+    junk = torch.empty(flush_mb << 18, dtype=torch.int32, device="cuda")
+    fn()
+    ts = []
+    for i in range(reps):
+        junk.fill_(i)
+        torch.cuda._sleep(1_000_000)
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        torch.cuda.synchronize()
+        ts.append(e0.elapsed_time(e1))
+    return float(np.median(ts))
+
+
 def sa_lookup_real(out, rate, fmi, th, model, dev):
     """The LF-walk kernel on the 4.7 Mb genome's index: seeded rows at the
     pooled step's RT = 6144 (the headline) and the classic step's B*R =
@@ -2361,12 +2460,46 @@ def sa_lookup_real(out, rate, fmi, th, model, dev):
             walk_longest=int(walk.max()), walk_mean=float(walk.mean()),
             walk_visits=int(walk.sum()), distinct_buckets=buckets,
             visit_bound_ms=size * (float(walk.mean()) + 1) * 24 / rate * 1e3)
+        # the floor's rows: each of these rows rounded down to a sampled one
+        sampled_t = (rows_t // SA_INTV) * SA_INTV
+        ok &= lf_step_times(ent, "sa_lookup", 4, idx["occ_rows"],
+                            idx["sa_samp"], idx["L2"], fmi, dev,
+                            lambda: sl.sa_lookup(idx, sampled_t, SA_INTV))
+        # the same call with the 50 MB L2 flushed before it, and warm, both
+        # queued behind a spin (CUDA events)
+        ent.update(
+            cold_ms=queued_ms(lambda: sl.sa_lookup(idx, rows_t, SA_INTV),
+                              flush_mb=128),
+            warm_queued_ms=queued_ms(
+                lambda: sl.sa_lookup(idx, rows_t, SA_INTV)))
         log("[4] sa_lookup bounds: " + json.dumps(
             {k: ent[k] for k in ("ms", "bound_ms", "visit_bound_ms",
                                  "chain_bound_ms", "load_latency_ns",
-                                 "walk_longest", "walk_mean",
-                                 "distinct_buckets", "library_ms")}))
+                                 "step_ns", "floor_ms", "step_model_ms",
+                                 "warm_queued_ms", "cold_ms", "walk_longest",
+                                 "walk_mean", "distinct_buckets",
+                                 "library_ms")}))
     return ok
+
+
+def lf_step_times(ent, kernel, ph, occ, samp, L2, fmi, dev, fn_floor):
+    """Beside an LF-walk kernel's device time (``ent``, its entry of the
+    kernels line): its step's latency by :func:`probe_lf_chain` against one
+    dependent load's, its floor (the device time of the same launch on rows
+    that take no step: the launch and what every row reads and writes), and
+    the time the two predict, floor + longest walk x step."""
+    step, walked = probe_lf_chain(kernel, occ, samp, L2, fmi.n, fmi.primary,
+                                  fmi.sa_full, dev)
+    floor, = device_ms([(fn_floor, 20)], tag=f"{kernel}_floor")
+    longest = ent.get("walk_longest", ent.get("run_longest"))
+    ent.update(step_ns=step, floor_ms=floor,
+               step_model_ms=floor + longest * step * 1e-6)
+    log(f"[{ph}] {kernel} step: {step:.1f} ns a step on one thread "
+        f"(probe_lf_chain, walks {'right' if walked else 'WRONG'}) against "
+        f"one dependent load's {ent['load_latency_ns']:.1f} ns (probe_chase);"
+        f" floor {floor:.5f} ms; floor + longest {longest} x step "
+        f"{ent['step_model_ms']:.5f} ms against the kernel's {ent['ms']:.5f}")
+    return walked
 
 
 def sampled_real(out, fmi, th, model, conf, full_idx, reads, dev):
@@ -2440,10 +2573,20 @@ def sampled_real(out, fmi, th, model, conf, full_idx, reads, dev):
         log(f"[4] captured sa_lookup#{i} ({rows.numel()} rows): "
             f"{'bit-equal' if eq else 'MISMATCH'}")
     ok &= bool(captured)
-    out["sampled_profile"] = profile_block(bm, reads)
-    log("[4] sampled SA profile: " + json.dumps(out["sampled_profile"]))
-    if "sa_lookup" in out["kernels"]:
-        out["kernels"]["sa_lookup"]["launches"] = counts["sa_lookup"]
+    prof = out["sampled_profile"] = profile_block(bm, reads)
+    log("[4] sampled SA profile: " + json.dumps(prof))
+    ent = out["kernels"].get("sa_lookup")
+    if ent is not None:
+        ent["launches"] = counts["sa_lookup"]
+        # the walk inside the step, beside its time alone on seeded rows
+        n_step = prof["sa_lookup_launches_per_step"]
+        ent["in_step_ms"] = (prof["sa_lookup_ms_per_step"] / n_step
+                             if n_step else None)
+        log(f"[4] sa_lookup in the profiled step: {n_step} launches a step, "
+            f"{ent['in_step_ms']} ms a launch (profiler), against "
+            f"{ent['ms']:.5f} alone warm (profiler), "
+            f"{ent.get('warm_queued_ms')} warm and {ent.get('cold_ms')} "
+            "after an L2 flush (CUDA events)")
     return ok
 
 
@@ -3977,10 +4120,17 @@ def shard_kernels(out, rate, dev):
     lat = load_latency_ns(dev)
     res["sa_walk_step"].update(chain_bound_ms=longest * lat * 1e-6,
                                load_latency_ns=lat, run_longest=longest)
+    # its step on one thread over the whole table as one block, and its
+    # floor: the same rows rounded down to sampled ones (no row steps)
+    r_res = (r // SA_INTV) * SA_INTV
+    ok &= lf_step_times(res["sa_walk_step"], "sa_walk_step", 2,
+                        T(tabs["occ_rows"]), None, L2, fmi, dev,
+                        lambda: sl.sa_walk_step(blk, L2, r_res, n, primary,
+                                                SA_INTV, 0))
     log("[2] sa_walk_step chain bound: " + json.dumps(
         {k: res["sa_walk_step"][k] for k in (
             "ms", "bound_ms", "chain_bound_ms", "load_latency_ns",
-            "run_longest")}))
+            "step_ns", "floor_ms", "step_model_ms", "run_longest")}))
     return ok
 
 
@@ -4197,6 +4347,9 @@ def profile_block(bm, reads):
     def family_ms(tag):
         return sum(v for k, v in by_name.items() if tag in k) / 1e3 / T
 
+    def family_n(tag):
+        return sum(1 for e in kern if tag in e.get("name", "")) / T
+
     starts = [float(e["ts"]) for e in kern]
     ends = [float(e["ts"]) + float(e.get("dur", 0)) for e in kern]
     span_ms = (max(ends) - min(starts)) / 1e3 if kern else 0.0
@@ -4214,6 +4367,7 @@ def profile_block(bm, reads):
         cat_ms_per_step=family_ms("CatArrayBatchedCopy"),
         tracker_fold_ms_per_step=family_ms("tracker_fold_kernel"),
         sa_lookup_ms_per_step=family_ms("sa_lookup_kernel"),
+        sa_lookup_launches_per_step=family_n("sa_lookup_kernel"),
     )
 
 

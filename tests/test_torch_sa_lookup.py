@@ -152,73 +152,218 @@ def test_sa_lookup_other_intv_matches_jax():
     assert np.array_equal(value, want.astype(np.int64))
 
 
-def _kernel_walk(idx, r, intv):
-    """csrc/sa_lookup.cu's loop for one row, step for step in numpy ints:
-    one bucket row (j = r - (r > primary)) serves the base and the occ
-    count; LF(primary) = 0.  Returns (value, steps)."""
+EVEN = 0x55555555
+U32 = 0xFFFFFFFF
+
+
+def lf_pre(r, j, n, primary, L2):
+    """csrc/sa_lookup.cu's ``lf_pre`` in numpy (int64, any shape): what the
+    step takes from r and j = r - (r >= primary) while the bucket row loads.
+    The 64-bit mask of the bucket's bases 0 ... j & 31 (word 0 high, MSB
+    first) is laid out as x / y are (word 0's bases on the even bits, word
+    1's on the odd); ``bit`` marks base j & 31 there.  For r == n and the
+    primary row the mask and the checkpoints' ``keep`` are 0 and each base's
+    addend is its LF (L2[c + 1], 0); else L2[c], plus (j & 31) + 1 for base
+    0.  Returns (mask, bit, keep, [4, *] addends)."""
+    r, j = np.asarray(r, np.int64), np.asarray(j, np.int64)
+    L2 = np.asarray(L2, np.int64)
+    pos = j & 31
+    pm = np.left_shift(np.uint64(2**64 - 1), (62 - 2 * pos).astype(np.uint64))
+    pm0 = (pm >> np.uint64(32)).astype(np.int64)
+    pm1 = (pm & np.uint64(U32)).astype(np.int64)
+    prim = r == primary
+    fixed = prim | (r >= n)
+    mask = np.where(fixed, 0, (pm0 & EVEN) | (pm1 & (U32 ^ EVEN)))
+    bit = np.left_shift(np.int64(1), np.where(pos < 16, 30 - 2 * pos,
+                                              63 - 2 * pos))
+    keep = np.where(fixed, 0, U32)
+    add = np.stack([np.where(fixed, np.where(prim, 0, L2[c + 1]),
+                             L2[c] + (pos + 1 if c == 0 else 0))
+                    for c in range(4)])
+    return mask, bit, keep, add
+
+
+def lf_counts(w0, w1, mask):
+    """The kernel's three popcounts under ``mask`` over the bucket's words
+    interleaved into x (each base's low bit) and y (its high bit): the
+    counts of bases 1, 2, 3 ([3, *]) and of 1 + 2 + 3, from which base 0's
+    follows."""
+    w0, w1 = np.asarray(w0, np.int64), np.asarray(w1, np.int64)
+    x = (w0 & EVEN) | ((w1 << 1) & (U32 ^ EVEN))
+    y = ((w0 >> 1) & EVEN) | (w1 & (U32 ^ EVEN))
+
+    def pc(v):
+        return np.bitwise_count(v.astype(np.uint32)).astype(np.int64)
+
+    n1, n12, n3 = pc(x & ~y & mask), pc((x ^ y) & mask), pc(x & y & mask)
+    return x, y, np.stack([n1, n12 - n1, n3]), n12 + n3
+
+
+def lf_post(pre, row):
+    """csrc/sa_lookup.cu's ``lf_post`` in numpy: LF from the bucket row
+    ``row`` ([*, 6] of uint32 values: the checkpoints of bases 0-3, then the
+    two words): the four candidate LF values, then the select by the base's
+    two bits (bit ``bit`` of y, then of x).  int32, wrapped as the kernel
+    adds."""
+    mask, bit, keep, add = pre
+    row = np.asarray(row, np.int64)
+    x, y, n123, nz = lf_counts(row[..., 4], row[..., 5], mask)
+    ck = row[..., :4] & keep[..., None]
+    v = [add[0] + ck[..., 0] - nz] + [add[c] + ck[..., c] + n123[c - 1]
+                                       for c in (1, 2, 3)]
+    lo, hi = (x & bit) != 0, (y & bit) != 0
+    lf = np.where(hi, np.where(lo, v[3], v[2]), np.where(lo, v[1], v[0]))
+    return (lf & U32 ^ 2**31) - 2**31
+
+
+def _kernel_walk(idx, rows, intv):
+    """csrc/sa_lookup.cu's ``sa_lookup_kernel`` in numpy, every row at
+    once: rows clamped to [0, n]; while a row is live and within the step
+    cap, its bucket row j >> 5 of j = r - (r >= primary) (in [0, n - 1]),
+    then lf_pre and lf_post.  Returns (values, steps)."""
     n, primary = idx["n"], idx["primary"]
-    occ = np.asarray(idx["occ_rows"]).view(np.uint32)
-    L2 = np.asarray(idx["L2"]).astype(np.int64)
-    samp = np.asarray(idx["sa_samp"])
-    even = 0x55555555
-
-    def count_word(word, inc, c):
-        x = int(word) ^ (c * even)
-        nx = ~x & 0xFFFFFFFF
-        m = nx & (nx >> 1) & even
-        pm = 0 if inc <= 0 else 0xFFFFFFFF if inc >= 16 else \
-            (0xFFFFFFFF << ((16 - inc) * 2)) & 0xFFFFFFFF
-        return bin(m & pm).count("1")
-
-    r, steps = min(max(int(r), 0), n), 0
+    words = np.asarray(idx["occ_rows"]).view(np.uint32).astype(np.int64)
+    samp = np.asarray(idx["sa_samp"]).astype(np.int64)
+    r = np.clip(np.asarray(rows, np.int64), 0, n)
+    steps = np.zeros_like(r)
     pow2 = (intv & (intv - 1)) == 0  # the kernel's mask-and-shift path
-    while (r & (intv - 1) if pow2 else r % intv) != 0:
-        if r == primary:
-            r = 0
-        else:
-            j = r - (r > primary)
-            row = occ[j >> 5]
-            pos = j & 31
-            word = int(row[4] if pos < 16 else row[5])
-            c = (word >> ((15 - (pos & 15)) * 2)) & 3
-            if r >= n:
-                o = int(L2[c + 1] - L2[c])
-            else:
-                rem = j & 31
-                o = int(row[c]) + count_word(row[4], rem + 1, c) + \
-                    count_word(row[5], rem - 15, c)
-            r = int(L2[c]) + o
-        steps += 1
+
+    def live(v):
+        return (v & (intv - 1) if pow2 else v % intv) != 0
+
+    going = live(r)
+    while going.any():
+        g = np.flatnonzero(going)
+        j = r[g] - (r[g] >= primary)
+        assert ((j >= 0) & (j < n)).all()
+        r[g] = lf_post(lf_pre(r[g], j, n, primary, idx["L2"]),
+                       words[j >> 5])
+        steps[g] += 1
+        going[g] = live(r[g]) & (steps[g] <= n)
     slot = r >> (intv.bit_length() - 1) if pow2 else r // intv
-    return int(samp[slot]) + steps, steps
+    return samp[slot] + steps, steps
 
 
 def test_kernel_step_model_matches_jax(indexes):
     """The kernel's fused step (one bucket row for base and occ) on every
-    row of a stride through the index plus the edge rows, against JAX and
-    against the walk lengths of walk_model."""
+    row of the index plus the edge rows, against JAX, the plain version
+    and the walk lengths of walk_model."""
     import jax.numpy as jnp
 
     from uncalled_tpu.mapping.engine import _sa_lookup
 
-    from uncalled_tpu_torch.ops.sa_lookup import walk_model
+    from uncalled_tpu_torch.ops.sa_lookup import sa_lookup_plain, walk_model
 
-    fmi, jidx, _ = indexes
-    rows = np.concatenate([_rows(fmi, "edges"),
-                           np.arange(0, fmi.n + 1, 7)]).astype(np.int32)
+    fmi, jidx, tidx = indexes
+    rows = np.concatenate([_rows(fmi, "edges"), _rows(fmi, "all")]).astype(
+        np.int32)
     want = np.asarray(_sa_lookup(jidx, jnp.asarray(rows), INTV))
     idx = {k: (v if isinstance(v, int) else np.asarray(v))
            for k, v in jidx.items()}
-    got = np.array([_kernel_walk(idx, r, INTV) for r in rows])
+    got, got_steps = _kernel_walk(idx, rows, INTV)
     steps, _ = walk_model(fmi.sa_full, INTV)
-    assert np.array_equal(got[:, 0], want)
-    assert np.array_equal(got[:, 1], steps[rows])
+    assert np.array_equal(got, want)
+    assert np.array_equal(got, sa_lookup_plain(tidx, _t(rows), INTV).numpy())
+    assert np.array_equal(got_steps, steps[rows])
+
+
+def test_kernel_step_model_other_intv():
+    """The kernel's step at intv 24 (its divide path) on every row of the
+    example index, against the plain version and the walk lengths."""
+    from uncalled_tpu_torch.index.bwa_compat import load_bwa_index
+    from uncalled_tpu_torch.mapping import engine as te
+    from uncalled_tpu_torch.mapping.thresholds import load_uncl
+    from uncalled_tpu_torch.ops.sa_lookup import sa_lookup_plain, walk_model
+    from uncalled_tpu_torch.poremodel import load_default
+
+    fmi = load_bwa_index(PREFIX)
+    tidx = te.device_index(fmi, load_uncl(PREFIX + ".uncl"), load_default(),
+                           device="cpu", sampled_sa=True, sa_intv=24)
+    rows = np.arange(fmi.n + 1, dtype=np.int32)
+    idx = {k: (v if isinstance(v, int) else v.numpy())
+           for k, v in tidx.items()}
+    got, got_steps = _kernel_walk(idx, rows, 24)
+    assert np.array_equal(got, sa_lookup_plain(tidx, _t(rows), 24).numpy())
+    assert np.array_equal(got_steps, walk_model(fmi.sa_full, 24)[0])
+
+
+@pytest.mark.parametrize("case", ["seeded", "example", "fixed"])
+def test_three_popcounts_match_count_word(indexes, case):
+    """The kernel's counts (three popcounts over the interleaved words,
+    base 0's by difference) equal count_word's two-word sum (the plain
+    version's ``_occ_count`` with zero checkpoints) for every rem in 0..31
+    and every base, and its base bits the plain version's base: on seeded
+    random words with the all-0, all-1 and alternating words, and on every
+    bucket row of the example index.  On the example index LF from
+    lf_pre / lf_post equals the plain step (``_lf_local``) on every row,
+    and rows n and primary give L2[c + 1] and 0."""
+    from uncalled_tpu_torch.mapping.engine import _occ_count
+    from uncalled_tpu_torch.ops.sa_lookup import _lf_local
+
+    fmi, _, tidx = indexes
+    occ = tidx["occ_rows"].numpy()
+    n, primary = tidx["n"], tidx["primary"]
+    if case == "fixed":
+        r = np.array([n, primary], np.int64)
+        j = r - (r >= primary)
+        word = occ.view(np.uint32)[(n - 1) >> 5, 4 + ((n - 1) & 31) // 16]
+        c = (int(word) >> (2 * (15 - ((n - 1) & 15)))) & 3
+        # the index's L2, and one whose totals disagree with the counts (on
+        # a consistent index _occ's full count at r == n is also the count
+        # through row n - 1, so only this L2 tells the two apart)
+        for L2 in (tidx["L2"], tidx["L2"] + _t(np.array([0, 1, 3, 7, 15],
+                                                        np.int32))):
+            lf = lf_post(lf_pre(r, j, n, primary, L2.numpy()),
+                         occ.view(np.uint32)[j >> 5])
+            assert lf.tolist() == [int(L2[c + 1]), 0]
+            want = _lf_local(tidx["occ_rows"], L2, _t(r.astype(np.int32)), n,
+                             primary, 0)
+            assert np.array_equal(lf, want.numpy())
+        return
+    if case == "seeded":
+        rng = np.random.default_rng(13)
+        words = np.concatenate([
+            np.array([[0, 0], [U32, U32], [EVEN, EVEN], [U32 ^ EVEN, EVEN],
+                      [EVEN, U32 ^ EVEN], [0, U32]], np.uint32),
+            rng.integers(0, 2**32, (250, 2), dtype=np.uint32)])
+    else:
+        words = occ[:, 4:].view(np.uint32)
+        r = np.arange(n + 1, dtype=np.int64)
+        j = r - (r >= primary)
+        lf = lf_post(lf_pre(r, j, n, primary, tidx["L2"].numpy()),
+                     occ.view(np.uint32)[j >> 5])
+        want = _lf_local(tidx["occ_rows"], tidx["L2"], _t(r.astype(np.int32)),
+                         n, primary, 0)
+        assert np.array_equal(lf, want.numpy())
+    # every word pair x every rem x every base
+    R = len(words)
+    rem = np.broadcast_to(np.arange(32)[None, :, None], (R, 32, 4))
+    base = np.broadcast_to(np.arange(4)[None, None, :], (R, 32, 4))
+    w = np.broadcast_to(words.astype(np.int64)[:, None, None, :],
+                        (R, 32, 4, 2))
+    mask, bit, _, _ = lf_pre(rem, rem, 2**30, -1, np.zeros(5, np.int64))
+    x, y, n123, nz = lf_counts(w[..., 0], w[..., 1], mask)
+    counts = np.stack([rem + 1 - nz, *n123])  # [4, R, 32, 4]
+    got = np.take_along_axis(counts, base[None], 0)[0]
+    row = np.zeros((R, 32, 4, 6), np.int64)
+    row[..., 4:] = w
+    row = (row ^ 2**31) - 2**31  # as int32
+    k = _t(rem.astype(np.int32))
+    want = _occ_count({"n": 2**30, "L2": torch.zeros(5, dtype=torch.int32)},
+                      k, _t(base.astype(np.int32)), k,
+                      _t(row.astype(np.int32))).numpy()
+    assert np.array_equal(got, want)
+    # the base at rem: bit ``bit`` of y (high) and of x (low)
+    c = 2 * ((y & bit) != 0) + ((x & bit) != 0)
+    word = np.where(rem < 16, w[..., 0], w[..., 1])
+    assert np.array_equal(c, (word >> (2 * (15 - (rem & 15)))) & 3)
 
 
 def test_sa_lookup_launch_off_the_cpu(monkeypatch):
     """A tensor off the CPU goes to the launcher with the table sizes and
     counts one launch; the plain version never runs there; tables that do
-    not cover n, wrong dtypes and a bad intv raise."""
+    not cover n, a primary row outside [1, n], wrong dtypes and a bad intv
+    raise."""
     from uncalled_tpu_torch.ops import _cuda
     from uncalled_tpu_torch.ops import sa_lookup as sl
 
@@ -254,6 +399,8 @@ def test_sa_lookup_launch_off_the_cpu(monkeypatch):
         ({}, meta(6144, dt=torch.int64), 32),
         ({"L2": meta(5, dt=torch.float32)}, meta(6144), 32),
         ({}, meta(6144), 0),
+        ({"primary": 0}, meta(6144), 32),  # not an FM index's primary row
+        ({"primary": n + 1}, meta(6144), 32),
     ]
     for over, rows, intv in bad:
         with pytest.raises((TypeError, ValueError)):

@@ -362,63 +362,54 @@ def _kernel_model_case(t, key):
 
 def test_walk_step_kernel_model(tables):
     """csrc/sa_lookup.cu's sa_walk_step loop replayed in numpy on every row
-    (the primary row stepped only by block 0, a foreign bucket row or a
-    resolved row ending the run, the kept-row rule), both blocks of a
-    split in 2, against the plain version."""
+    with the kernel's step (``lf_pre`` / ``lf_post`` of
+    tests/test_torch_sa_lookup.py: the 64-bit mask from j, three popcounts,
+    the select by the base's bits) and its block rules (the primary row
+    stepped only by block 0, a foreign bucket row or a resolved row ending
+    the run, each load at the owned bucket row or clamped into the block,
+    the kept-row rule), both blocks of a split in 2, intv 32 and 24, against
+    the plain version."""
+    from test_torch_sa_lookup import lf_post, lf_pre
+
     from uncalled_tpu_torch.ops.sa_lookup import sa_walk_step_plain
 
     n, primary, t = tables
     occ = _pad(t["occ_rows"], 2)
     per = len(occ) // 2
-    L2 = t["L2"].astype(np.int64)
     words = occ.view(np.uint32).astype(np.int64)
-    intv = 32
-    even = 0x55555555
-
-    def count(word, inc, c):
-        x = word ^ (c * even)
-        nx = ~x & 0xFFFFFFFF
-        m = nx & (nx >> 1) & even
-        sh = (16 - np.clip(inc, 0, 16)) * 2
-        pm = np.where(inc <= 0, 0, np.where(
-            inc >= 16, 0xFFFFFFFF, (0xFFFFFFFF << sh) & 0xFFFFFFFF))
-        v = (m & pm).astype(np.uint64)
-        return np.array([bin(int(x)).count("1") for x in v], np.int64)
-
-    def lf(r, lo):
-        j = np.maximum(r - (r > primary), 0)
-        row = words[np.clip((j >> 5) - lo, 0, per - 1) + lo]
-        pos = j & 31
-        word = np.where(pos < 16, row[:, 4], row[:, 5])
-        c = (word >> ((15 - (pos & 15)) * 2)) & 3
-        rem = j & 31
-        occ_c = np.where(r >= n, L2[c + 1] - L2[c],
-                         row[np.arange(len(r)), c]
-                         + count(row[:, 4], rem + 1, c)
-                         + count(row[:, 5], rem - 15, c))
-        return L2[c] + occ_c
-
     r0 = np.arange(n + 1, dtype=np.int64)
-    for lo in (0, per):
-        r, steps = r0.copy(), np.zeros_like(r0)
-        going = np.ones(len(r), bool)
-        while True:
-            going &= (r & (intv - 1)) != 0
-            j = np.maximum(r - (r > primary), 0)
-            b = (j >> 5) - lo
-            owned = np.where(r == primary, lo == 0, (b >= 0) & (b < per))
-            going &= owned
-            if not going.any():
-                break
-            idx = np.flatnonzero(going)
-            r[idx] = np.where(r[idx] == primary, 0, lf(r[idx], lo))
-            steps[idx] += 1
-        kept = (steps > 0) | (((r & (intv - 1)) == 0) & (lo == 0))
-        got = sa_walk_step_plain(_t(occ[lo: lo + per]), _t(t["L2"]),
-                                 _t(r0.astype(np.int32)), n, primary, intv,
-                                 lo).numpy()
-        assert np.array_equal(np.where(kept, r, 0).astype(np.int32), got[0])
-        assert np.array_equal(steps.astype(np.int32), got[1])
+    for intv in (32, 24):
+        pow2 = (intv & (intv - 1)) == 0
+
+        def live(v):
+            return (v & (intv - 1) if pow2 else v % intv) != 0
+
+        for lo in (0, per):
+            def at(v):
+                """j, owned, and the block row the kernel loads (the
+                unsigned b clamped to per - 1)."""
+                j = v - (v >= primary)
+                b = (j >> 5) - lo
+                own = np.where(v == primary, lo == 0, (b >= 0) & (b < per))
+                return j, own, np.where((b < 0) | (b >= per), per - 1, b)
+
+            r, steps = r0.copy(), np.zeros_like(r0)
+            j, own, blk = at(r)
+            going = live(r) & own
+            while going.any():
+                g = np.flatnonzero(going)
+                r[g] = lf_post(lf_pre(r[g], j[g], n, primary, t["L2"]),
+                               words[lo + blk[g]])
+                steps[g] += 1
+                j, own, blk = at(r)
+                going[g] = live(r[g]) & own[g] & (steps[g] <= n)
+            kept = (steps > 0) | (~live(r) & (lo == 0))
+            got = sa_walk_step_plain(_t(occ[lo: lo + per]), _t(t["L2"]),
+                                     _t(r0.astype(np.int32)), n, primary,
+                                     intv, lo).numpy()
+            assert np.array_equal(np.where(kept, r, 0).astype(np.int32),
+                                  got[0])
+            assert np.array_equal(steps.astype(np.int32), got[1])
 
 
 def test_launch_off_the_cpu(monkeypatch):

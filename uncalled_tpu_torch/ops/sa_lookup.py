@@ -89,13 +89,15 @@ def sa_lookup(idx, rows, intv: int):
     _cuda.check(L2, "sa_lookup.L2", (I32,), 1, dev)
     if intv < 1:
         raise ValueError(f"sa_lookup: intv {intv}")
-    # every load the walk can make lies inside the tables
+    # every load the walk can make lies inside the tables (the kernel's
+    # bucket row index r - (r >= primary) stays in [0, n - 1])
     if (occ.shape[1] != 6 or occ.shape[0] * 32 < n or L2.shape[0] < 5
-            or samp.shape[0] <= n // intv or occ.data_ptr() % 8):
+            or samp.shape[0] <= n // intv or occ.data_ptr() % 8
+            or not 1 <= primary <= n):
         raise ValueError(
             f"sa_lookup: tables occ_rows {tuple(occ.shape)}, sa_samp "
-            f"{tuple(samp.shape)}, L2 {tuple(L2.shape)} do not cover "
-            f"n={n} at intv={intv}")
+            f"{tuple(samp.shape)}, L2 {tuple(L2.shape)}, primary {primary} "
+            f"do not cover n={n} at intv={intv}")
     out = torch.empty_like(rows)
     if rows.numel():
         _cuda.launch("sa_lookup_i32", occ, samp, L2, rows, out, rows.numel(),
