@@ -33,6 +33,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import Conf
 from ..kmer import K
 from ..ops.events import detect_events_np
@@ -113,12 +114,11 @@ class BatchMapper:
         self.useful_events = 0  # per-read evt_i at harvest
         self.n_ejected = 0  # reads this mapper sent on to the next tier
         # host seconds in drain migrations (device syncs included) and in
-        # refills (DSP included); mig_phase splits t_migrate into the
-        # fetch of dm_pool and n_paths and the migration's dispatch
+        # refills (DSP included; on tracing.clock, the host_loop.refill
+        # spans' clock)
         self.t_migrate = 0.0
         self.t_refill = 0.0
         self.n_migrate = 0  # drain migrations attempted
-        self.mig_phase = [0.0, 0.0]
         self.n_handoff = 0  # device switches harvested (swap branch)
         # pool-global demand high-water [flags, valid, keep, entries, rows]
         self.pool_hw = np.zeros(5, np.int64)
@@ -298,6 +298,7 @@ class BatchMapper:
         return paf
 
 
+    @tracing.traced("host_loop.dsp")
     def _prepare_wave(self, reads) -> list:
         """Event detection for a refill wave on the engine's device
         (``conf.engine.device_dsp``): one ``detect_block`` stream of
@@ -347,6 +348,7 @@ class BatchMapper:
                 _Slot(read=r, means=norm[:cap], fed=0, mean_evt_len=mel))
         return slots
 
+    @tracing.traced("host_loop.dsp")
     def _prepare_many(self, reads) -> list:
         """_prepare over a refill wave; more than 3 reads go to host
         threads (the native detector is a ctypes call that releases the
@@ -384,20 +386,15 @@ class BatchMapper:
         if len(keep) > pd.B or ps.CL != pd.CL or ps.seed_len != pd.seed_len:
             return None
         self.eng.check_migrate()
-        t0 = time.time()
         # one device round trip for the high-water absorb and the fit check
         got = torch.cat([state["dm_pool"], state["n_paths"]]).cpu().numpy()
         np.maximum(self.pool_hw, got[:5], out=self.pool_hw)
         n_paths = got[5:]
-        t1 = time.time()
-        self.mig_phase[0] += t1 - t0
         if int(n_paths[keep].sum()) > pd.S:
             return "nofit"  # the caller may wait for fewer stragglers
         sel = np.full(pd.B, -1, np.int32)
         sel[: len(keep)] = keep
-        out = self.eng.migrate(state, sel, dm.eng)
-        self.mig_phase[1] += time.time() - t1
-        return out
+        return self.eng.migrate(state, sel, dm.eng)
 
     def _absorb_hw(self, state):
         """Fold the device's pool-global demand high-water into the host
@@ -446,11 +443,14 @@ class BatchMapper:
                 raise
 
         def refill(state):
-            t0 = time.time()
+            t0 = tracing.clock()
+            sp = tracing.span("host_loop.refill", t0)
             try:
                 return _refill(state)
             finally:
-                self.t_refill += time.time() - t0
+                t1 = tracing.clock()
+                sp.close(t1)
+                self.t_refill += t1 - t0
 
         def _refill(state):
             nonlocal pending
@@ -557,6 +557,7 @@ class BatchMapper:
         nofit_at = None  # straggler count at the last "nofit" migration
         pend = None  # the block in flight: (readout, [(b, slot, fed)])
         while pending or pend is not None or returned:
+            blk = tracing.block()
             if returned and not pending and pend is None:
                 state = refill(state)  # re-admit disarmed standbys
             thresh = max(4, B // en.drain_div)
@@ -608,9 +609,11 @@ class BatchMapper:
                 if mig is not None or drained:
                     slots = [None] * B
                     pending = 0
+                    blk.close()
                     break
             new_pend = None
             if pending and not want_drain:
+                pk = tracing.span("host_loop.pack")
                 means = np.zeros((B, T), np.float32)
                 on = np.zeros((B, T), bool)
                 snap = []
@@ -622,6 +625,7 @@ class BatchMapper:
                     on[b, : len(nxt)] = True
                     s.fed += len(nxt)
                     snap.append((b, s, s.fed))
+                sb = None
                 if ho and (standby or promote_pending.any()):
                     W = 2 * T
                     sb_m = np.zeros((B, W), np.float32)
@@ -634,14 +638,18 @@ class BatchMapper:
                         armed[b] = True
                     prom = promote_pending.copy()
                     promote_pending[:] = False
-                    state = self.eng.advance(state, means, on,
-                                             sb=(sb_m, sb_o, armed, prom))
-                else:
+                    sb = (sb_m, sb_o, armed, prom)
+                pk.close()
+                if sb is None:
                     state = self.eng.advance(state, means, on)
+                else:
+                    state = self.eng.advance(state, means, on, sb=sb)
                 self.disp_events += B * T
                 new_pend = (self.eng.readout_start(state), snap)
             if pend is not None:
                 ro = self.eng.readout_get(pend[0])
+                # harvest, less the time the caller holds each yield
+                hv = tracing.span("host_loop.harvest")
                 ro_sw = ro["sw"] if (ho and "sw" in ro) else zeros_b
                 for b, s, fed_after in pend[1]:
                     if slots[b] is not s:
@@ -653,7 +661,10 @@ class BatchMapper:
                         # events of the in-flight block)
                         paf = emit_latched(s, ro, b)
                         if paf is not None:
-                            yield paf
+                            hv.close()
+                            with tracing.span("host_loop.consumer"):
+                                yield paf
+                            hv = tracing.span("host_loop.harvest")
                         ss = standby.pop(b)
                         ss.fed = min(int(ro["evt_i"][b]) + T, len(ss.means))
                         slots[b] = ss
@@ -669,7 +680,10 @@ class BatchMapper:
                         # start after the slot's reset.
                         paf = emit_latched(s, ro, b)
                         if paf is not None:
-                            yield paf
+                            hv.close()
+                            with tracing.span("host_loop.consumer"):
+                                yield paf
+                            hv = tracing.span("host_loop.harvest")
                         slots[b] = None
                         stale[b] = True
                         pending -= 1
@@ -682,7 +696,11 @@ class BatchMapper:
                         overflowed.append((s.read, int(ro["ovf_why"][b]), dm))
                     elif ro["done"][b] or exhausted:
                         harvest(s, ro, b)
-                        yield self._finalize(s, ro, b)
+                        paf = self._finalize(s, ro, b)
+                        hv.close()
+                        with tracing.span("host_loop.consumer"):
+                            yield paf
+                        hv = tracing.span("host_loop.harvest")
                     else:
                         continue
                     slots[b] = None
@@ -690,10 +708,12 @@ class BatchMapper:
                     if ho and b in standby:
                         # the unswitched standby takes the slot classically
                         ready.append((b, standby.pop(b)))
+                hv.close()
                 # refill resets slots on the latest dispatched state, so
                 # new reads join the block after the in-flight one
                 state = refill(state)
             pend = new_pend
+            blk.close()
 
         self._absorb_hw(state)
         if drain_cont is not None:

@@ -28,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import Conf
 from ..convert import index_from_numpy
 from ..device import resolve
@@ -377,6 +378,7 @@ READOUT_KEYS = (
 )
 
 
+@tracing.traced("engine.readout_issue")
 def readout_start(state, keys=READOUT_KEYS):
     """The per-read lifecycle and decision fields packed as one [K, B] int32
     tensor (one device-to-host copy per block)."""
@@ -384,8 +386,11 @@ def readout_start(state, keys=READOUT_KEYS):
 
 
 def readout_get(packed, keys=READOUT_KEYS) -> dict:
-    """A :func:`readout_start` result -> host numpy dict (bools restored)."""
-    out = dict(zip(keys, packed.cpu().numpy()))
+    """A :func:`readout_start` result -> host numpy dict (bools restored).
+    The copy is the host's one wait on the device."""
+    with tracing.span("engine.readout_wait"):
+        host = packed.cpu()
+    out = dict(zip(keys, host.numpy()))
     for k in ("done", "success", "ovf", "sw", "lt_success", "lt_ovf"):
         if k in out:
             out[k] = out[k].astype(bool)

@@ -31,6 +31,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
 from ..config import Conf
 from ..device import resolve
 from ..kmer import KMER_COUNT
@@ -433,7 +434,11 @@ def _switch_to_standby(st, ev, ev_on, sb):
     return st, ev, ev_on, swm
 
 
-def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
+def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None,
+                     ph=tracing.NOOP):
+    """One event for every slot.  ``ph`` marks the step's phases, one
+    marker at each section below; the last, ``release``, runs on past the
+    return, while the step's tensors are freed (``tracing.phases``)."""
     dev = ev.device
     B, S, SC, SL = p.B, p.S, p.SC, p.seed_len
     KMASK = KMER_COUNT - 1
@@ -457,8 +462,10 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
 
     swm = None
     if p.handoff and sb is not None:
+        ph("switch")
         st, ev, ev_on, swm = _switch_to_standby(st, ev, ev_on, sb)
 
+    ph("probs")
     alive = (~st["done"]) & ev_on  # [B]
     probs = _match_probs(idx, ev, p.exact_probs)  # [B, 1024] f32
 
@@ -480,6 +487,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     slot_alive = owned & al_slot & (q_total > 0)
 
     # ---- candidate flags in creation order -------------------------------
+    ph("candidates")
     pv = slot_alive
     fmlen = q_end - q_start + 1
     # stay + move probs are 4-wide rows of one [B*256, 4] view of probs
@@ -498,6 +506,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     flags = torch.cat([stay_f[:, None], mv_f], 1)  # [S, 5]
 
     # ---- compact to the candidate pool (global, order-preserving) --------
+    ph("compact")
     flat = flags.reshape(5 * S)
     cflags = flags.sum(1, dtype=I32)  # [S]
     pstart, pstart_pad = _excl(cflags)
@@ -512,6 +521,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     cut_cand = (cb[1:].clamp(max=SC) - cb[:-1].clamp(max=SC)) != n_flags_r
 
     # ---- parent fields + FM extension ------------------------------------
+    ph("extend")
     cumnow_p = _ring_read(q_cum, q_total % RING)
     wslot_p = torch.where(q_total + 1 >= SL, (q_total + 1 - SL) % RING, 0)
     wstart_p = _ring_read(q_cum, wslot_p)
@@ -564,6 +574,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     nconsec = torch.where(is_mv, 0, ccons + 1)
 
     # ---- ended parents (budget-break parity, mapper.cpp:455-520) ---------
+    ph("ended")
     k_i = pstart  # [S] global compacted position of each stay flag
     is_last = nxt1(rid, B) != rid
     seg_end_c, tot_valid_slot = _seg_broadcast([cb[1:], n_valid_r], off, S)
@@ -599,6 +610,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     e_rows = torch.where(e_valid, fmlen.clamp(max=p.max_rep_copy), 0)
 
     # ---- sort candidates by (read, fm_start, fm_end, seed_prob) ----------
+    ph("sort")
     # the last key is the creation index: full ties keep creation order
     rid_key = torch.where(cvalid, crid, B)
     k1 = torch.where(cvalid, ns, INT32_MAX)
@@ -642,6 +654,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     )
 
     # ---- seed rows: ended groups (pool order) then candidates (sorted) ---
+    ph("seed_rows")
     MRC = p.max_rep_copy
     RE = min(p.RE, S + SC)
     RT = min(p.RT, RE * MRC)
@@ -709,12 +722,14 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     rows_cut_r = (want_rows_r > R) | (rows_r != want_rows_r)
     rows_eff = torch.where(alive, rows_r.clamp(max=R), 0)
 
+    ph("tracker")
     tstate = tracker_run_compact(
         p.min_aln_len, {k: st[k] for k in TRACKER_KEYS}, ref_en_flat,
         rr_mc, rr_evt, st_w, rows_eff,
     )
 
     # ---- sources (mapper.cpp:544-624) -------------------------------------
+    ph("sources")
     source_prob = idx["threshes"][0]
     kpass = prob_s >= source_prob
     prev_k = torch.cat([full(1, -1), nk_s[:-1]])
@@ -745,6 +760,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     )
 
     # ---- assemble the new pool --------------------------------------------
+    ph("assemble")
     child_keep = svalid & (~dup)
     _, ckcum_pad = _excl(child_keep)
     # n_cands per read includes dups (the reference's budget_left)
@@ -813,6 +829,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
     idx_D = (g_old + (r_in - g_nd - g_hgk - g_fk)).clamp(0, S - 1)
 
     # ---- unified record table: one row gather serves all four classes.
+    ph("record_table")
     # Schema: start, end, kmer, total, consec, moves, sa, ringsrc (pool
     # row to copy the prob ring from; -1 = zeros), ringslot (ring slot to
     # overwrite; -1 = none), ringval.
@@ -897,11 +914,13 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None):
                          total_keep, n_ent, rw_b[-1]]),
         )
 
+    ph("decide")
     dec = _tracker_decide(p, out) & alive
     out["done"] = st["done"] | dec
     out["success"] = st["success"] | dec
     out["dec_evt"] = torch.where(dec, st["evt_i"], st["dec_evt"])
     out["evt_i"] = st["evt_i"] + alive.to(I32)
+    ph("release")
     return out
 
 
@@ -971,8 +990,10 @@ def pool_advance_block(idx, p: PoolParams, state, means, on, sb=None):
     else:
         win = None
     for t in range(means.shape[1]):
+        ph = tracing.phases("engine.step")
         state = _pool_event_step(idx, p, state, means[:, t], on[:, t],
-                                 sb=win)
+                                 sb=win, ph=ph)
+        ph.end()
     return state
 
 
@@ -1029,6 +1050,7 @@ class PooledEngine:
     def fresh_state(self):
         return make_pool_state(self.params, self.device)
 
+    @tracing.traced("engine.reset")
     def reset_slots(self, state, mask):
         return reset_pool_rows(
             state, torch.as_tensor(np.asarray(mask, bool), device=self.device)
@@ -1045,24 +1067,26 @@ class PooledEngine:
         sel = torch.as_tensor(np.asarray(sel, np.int32), device=self.device)
         return migrate_pool_state(self.params, dst.params, state, sel)
 
+    @tracing.traced("engine.advance")
     def advance(self, state, means, on, sb=None):
         """T events for every slot (means/on [B, T]); with the handoff on,
         ``sb`` = (sb_means [B, 2T], sb_on [B, 2T], armed [B], promote [B])
         host arrays, or None for windows with nothing armed (kept on the
         device per (B, T))."""
-        means = torch.as_tensor(np.asarray(means, np.float32),
-                                device=self.device)
-        on = torch.as_tensor(np.asarray(on, bool), device=self.device)
+        with tracing.span("engine.upload"):
+            means = torch.as_tensor(np.asarray(means, np.float32),
+                                    device=self.device)
+            on = torch.as_tensor(np.asarray(on, bool), device=self.device)
+            if self.params.handoff and sb is not None:
+                sb = tuple(
+                    torch.as_tensor(np.asarray(a, dt), device=self.device)
+                    for a, dt in zip(sb, (np.float32, bool, bool, bool)))
         if self.params.handoff:
             if sb is None:
                 key = tuple(means.shape)
                 sb = self._zero_sb.get(key)
                 if sb is None:
                     sb = self._zero_sb[key] = _zero_windows(*key, self.device)
-            else:
-                sb = tuple(
-                    torch.as_tensor(np.asarray(a, dt), device=self.device)
-                    for a, dt in zip(sb, (np.float32, bool, bool, bool)))
             return pool_advance_block(self.idx, self.params, state, means,
                                       on, sb=sb)
         return pool_advance_block(self.idx, self.params, state, means, on)
