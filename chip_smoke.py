@@ -77,7 +77,13 @@ verdict, printed only when every phase passed):
    the golden lines; so do the conf defaults' paths, each shown to have
    run: the slot handoff (B=2, three reads), handoff with the tail-mode
    disarm, the drain chain and the bitonic merge levels (B=8), the drain
-   by migration, and the classic entry's drain by restart; then the
+   by migration, all 14 reads (noise_1 whole) at B=4 with every block
+   after an engine's first replaying the step's CUDA graphs
+   (``mapping/graphs.py``), and the classic entry's drain by restart; the
+   graph replay against ``pool_advance_block`` bit for bit on every state
+   key after every block at the defaults' shapes (B=256, T=32, bitonic),
+   with and without the handoff, over 4 and 3 blocks with reads switched,
+   promoted and reset between them (``testing/graph_check.py``); then the
    realtime cases on the card, each equal to the port's own result with
    ``device="cpu"`` from the worker (timing tags stripped):
    ``map_ordered`` (chunk-ordered replay), the deplete ``run_sim_loop``
@@ -1752,7 +1758,45 @@ def phase_golden(out, refs):
         f"{'identical' if tier_ok else 'MISMATCH'} ({time.time() - t0:.2f} s)")
     classic_ok = phase_golden_classic(out, fmi, th, golden, sigs)
     defaults_ok = phase_golden_defaults(out, fmi, th, golden, sigs)
-    return ok and tier_ok and classic_ok and defaults_ok
+    graph_ok = graph_replay_check(out)
+    return ok and tier_ok and classic_ok and defaults_ok and graph_ok
+
+
+def graph_replay_check(out) -> bool:
+    """The pooled step's CUDA-graph replay (``graphs.BlockGraphs``) against
+    ``pool_advance_block``, bit for bit on every state key after every
+    block, at the benchmark cell's shapes (B=256, T=32, 384 pool slots a
+    read, bitonic sort) on the example index: the 14 golden reads admitted
+    in turn, decided slots reset, and with the handoff standbys armed,
+    switched and promoted.  The runner's first block is its capture, each
+    later one a replay."""
+    from uncalled_tpu_torch.config import Conf
+    from uncalled_tpu_torch.mapping import pooled as tp
+    from uncalled_tpu_torch.testing import graph_check as gc
+
+    idx = gc.example_index("cuda")
+    events = list(gc.golden_events().values())
+    res = out["graph_replay"] = {}
+    ok = True
+    conf = Conf()
+    conf.engine.batch_reads = 256
+    for handoff, blocks in ((True, 4), (False, 3)):
+        p = tp.PoolParams.from_conf(conf, sort_mode="bitonic",
+                                    handoff=handoff)
+        t0 = time.time()
+        diffs, counts = gc.compare_blocks(idx, p, events, blocks, 32, "cuda")
+        good = (all(not d for d in diffs) and counts["resets"] > 0
+                and (counts["switched"] > 0 or not handoff))
+        res[f"handoff={handoff}"] = dict(differ=diffs, blocks=blocks,
+                                         seconds=time.time() - t0, ok=good,
+                                         **counts)
+        log(f"[3] graph replay against the eager block, B={p.B} T=32 "
+            f"handoff {handoff}: keys differing by block {diffs}; "
+            f"{counts['switched']} switched, {counts['resets']} reset; "
+            f"{'bit-equal' if good else 'FAILED'} "
+            f"({time.time() - t0:.2f} s)")
+        ok &= good
+    return ok
 
 
 def golden_run(tag, bm, rids, golden, sigs, kernels):
@@ -1768,13 +1812,22 @@ def golden_run(tag, bm, rids, golden, sigs, kernels):
     dt = time.time() - t0
     counts = dict(_cuda.COUNTS)
     bad = [r for r in rids if got.get(r) != golden[r]]
+    gr = graph_counts(bm)
     log(f"[3] {tag}: {len(rids) - len(bad)}/{len(rids)} lines "
-        f"byte-identical in {dt:.2f} s; launches {counts}")
+        f"byte-identical in {dt:.2f} s; graphs {gr}; launches {counts}")
     for r in bad:
         log(f"[3]   {r}: got {got.get(r)!r}")
     ok = not bad and all(counts[k] > 0 for k in kernels)
     return ok, dict(seconds=dt, reads=len(rids), bad=bad, launches=counts,
-                    ok=ok)
+                    graphs=gr, ok=ok)
+
+
+def graph_counts(bm) -> dict:
+    """The pooled engines' graph counters summed over a mapper's chain
+    (``PooledEngine.advance``: captures, event steps replayed, eager)."""
+    ch = _chain(bm)
+    return {k: sum(getattr(m.eng, k, 0) for m in ch)
+            for k in ("graph_captures", "graph_steps", "eager_steps")}
 
 
 def sampled_chain(bm) -> bool:
@@ -1848,7 +1901,7 @@ def phase_golden_defaults(out, fmi, th, golden, sigs):
             handoff=getattr(bm.eng.params, "handoff", False),
             n_handoff=sum(m.n_handoff for m in chain),
             n_migrate=bm.n_migrate, migrated_reads=migrated,
-            drains=_drains(bm), launches=counts)
+            drains=_drains(bm), graphs=graph_counts(bm), launches=counts)
         passed = (not bad and len(got) == len(rids)
                   and cond(bm, info, counts))
         res[name] = dict(info, ok=passed)
@@ -1893,6 +1946,13 @@ def phase_golden_defaults(out, fmi, th, golden, sigs):
               lambda bm, i, c: (i["n_migrate"] > 0 and i["migrated_reads"]
                                 and isinstance(bm._drain_mapper.eng,
                                                PooledEngine)))
+    # all 14 golden reads, noise_1 whole (2250 events, never decides),
+    # at Conf() on B=4: every block after an engine's first of its shape
+    # replays the step's CUDA graphs (mapping/graphs.py)
+    ok &= run("graphs B=4, all 14", conf_of(4), allr,
+              lambda bm, i, c: (i["graphs"]["graph_captures"] > 0
+                                and i["graphs"]["graph_steps"]
+                                >= 10 * i["graphs"]["eager_steps"]))
     # the classic entry drains by restart (tests/test_engine.py)
     ok &= run("classic drain by restart B=64", conf_of(64, pooled=False),
               ["sim_0000_Escherichia_coli_3854_+",
@@ -2039,10 +2099,14 @@ def build_assets(prefix):
     return fmi, th, reads
 
 
-POOLED_HOOKS = {  # a captured kernel -> the pooled step's name for it
-    "tracker_fold": "tracker_run_compact", "ring_assemble": "ring_assemble",
-    "pair_counts": "pair_counts", "flat_gather": "flat_gather_cols",
-    "sort_runs": "sort_runs", "merge_level": "merge_level_"}
+POOLED_HOOKS = {  # a captured kernel -> the module and name the step
+    # calls it by: the wrappers a graph replay calls (mapping/graphs.py)
+    "tracker_fold": ("pooled", "tracker_run_compact"),
+    "ring_assemble": ("pooled", "ring_assemble"),
+    "pair_counts": ("pooled", "pair_counts"),
+    "flat_gather": ("colgather", "gather"),
+    "sort_runs": ("pooled", "sort_runs"),
+    "merge_level": ("pooled", "merge_level_")}
 
 
 @contextlib.contextmanager
@@ -2053,10 +2117,13 @@ def capture_pooled(limits, NP=None):
     that padded width (the merge levels of the first sort captured).
     Yields {name: [argument tuple, ...]} for pooled_pair."""
     import uncalled_tpu_torch.mapping.pooled as pooled
+    import uncalled_tpu_torch.ops.colgather as colgather
 
+    mods = dict(pooled=pooled, colgather=colgather)
     cap = {k: [] for k in limits}
     take = dict(
         tracker_fold=lambda *a: int(a[6].sum()) > 0,
+        flat_gather=lambda kernel, *a, **k: kernel == "flat_gather",
         sort_runs=lambda keys, n, w: NP is None or n == NP,
         merge_level=lambda buf, k, c: bool(cap.get("sort_runs")) and (
             NP is None or buf.shape[1] == NP))
@@ -2065,11 +2132,12 @@ def capture_pooled(limits, NP=None):
                                  *[x.clone() for x in a[2:]]),
         ring_assemble=lambda *a: tuple(x.clone() for x in a),
         pair_counts=lambda x, y, na, nb: (x.clone(), y.clone(), na, nb),
-        flat_gather=lambda cols, idx, lens=None: (keep(cols), idx.clone(),
-                                                  lens),
+        flat_gather=lambda kernel, cols, idx, lens=None, out=None: (
+            keep(cols), idx.clone(), lens),
         sort_runs=lambda keys, n, w: ([k.clone() for k in keys], n, w),
         merge_level=lambda buf, k, c: (buf.clone(), k, c))
-    orig = {k: getattr(pooled, POOLED_HOOKS[k]) for k in limits}
+    site = {k: (mods[POOLED_HOOKS[k][0]], POOLED_HOOKS[k][1]) for k in limits}
+    orig = {k: getattr(*site[k]) for k in limits}
 
     def hook(name):
         def f(*a, **kw):
@@ -2080,12 +2148,12 @@ def capture_pooled(limits, NP=None):
         return f
 
     for k in limits:
-        setattr(pooled, POOLED_HOOKS[k], hook(k))
+        setattr(*site[k], hook(k))
     try:
         yield cap
     finally:
         for k, f in orig.items():
-            setattr(pooled, POOLED_HOOKS[k], f)
+            setattr(*site[k], f)
 
 
 def pooled_pair(name, a):
@@ -4304,8 +4372,10 @@ def phase_sharded(out):
 
 
 def profile_block(bm, reads):
-    """One block of T events with every slot live, timed plain and then
-    traced with torch.profiler: wall per step, device kernel time per step,
+    """One block of T events with every slot live, after two warm blocks
+    (a pooled engine's eager block and the capture of its graphs, so the
+    pooled blocks measured are replays), timed plain and then traced with
+    torch.profiler: wall per step, device kernel time per step,
     CUDA kernels per step, the top kernels, and the device time per step
     of the column gathers and of every ``torch.cat`` copy left in the
     step.  ``idle_share`` is the device's idle share of the untraced wall
@@ -4317,22 +4387,25 @@ def profile_block(bm, reads):
     eng = bm.eng
     B, T = eng.params.B, bm.T
     slots = [bm._prepare(r) for r in reads[:B]]
-    means = np.zeros((B, 3 * T), np.float32)
-    on = np.zeros((B, 3 * T), bool)
+    means = np.zeros((B, 4 * T), np.float32)
+    on = np.zeros((B, 4 * T), bool)
     for b, s in enumerate(slots):
-        m = s.means[: 3 * T]
+        m = s.means[: 4 * T]
         means[b, : len(m)] = m
         on[b, : len(m)] = True
     state = eng.reset_slots(eng.fresh_state(), np.ones(B, bool))
-    state = eng.advance(state, means[:, :T], on[:, :T])  # warm
+    # warm: the block shape's eager block and its graphs' capture
+    for k in range(2):
+        state = eng.advance(state, means[:, k * T: (k + 1) * T],
+                            on[:, k * T: (k + 1) * T])
     torch.cuda.synchronize()
     t0 = time.time()
-    state = eng.advance(state, means[:, T: 2 * T], on[:, T: 2 * T])
+    state = eng.advance(state, means[:, 2 * T: 3 * T], on[:, 2 * T: 3 * T])
     torch.cuda.synchronize()
     wall = (time.time() - t0) * 1e3 / T
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        state = eng.advance(state, means[:, 2 * T:], on[:, 2 * T:])
+        state = eng.advance(state, means[:, 3 * T:], on[:, 3 * T:])
         torch.cuda.synchronize()
     evs = trace_events(prof, "step")
     kern = [e for e in evs if e.get("cat") == "kernel"]

@@ -14,7 +14,9 @@ behind every ``_flat_take`` and ``flat_gather_cols`` (which reads the
 fields it gathers where they lie, with no pack), the per-read k-mer pair
 count, the ring assembly, the compact seed-tracker fold and, in the
 bitonic candidate sort, the run sort and the merge levels.  The step
-does no host synchronisation: every shape is static.
+does no host synchronisation: every shape is static, so on the card
+``PooledEngine`` replays it as CUDA graphs with the hand-written kernels
+launched between them (``graphs``).
 
 Both candidate sorts run: ``sort_mode="bitonic"`` (the default on the
 card, as JAX's on its accelerator) and ``"flat"`` (the CPU default).  The
@@ -47,6 +49,7 @@ from ..ops.sortkern import (
 from ..ops.sortkern import rowsort_plain as _rowsort
 from ..ops.stepkern import ring_assemble
 from ..ops.tracker_kernel import tracker_run_compact
+from . import graphs
 from .engine import (
     F32,
     I32,
@@ -368,7 +371,7 @@ def _compaction_table(valid):
     tgt = torch.where(valid, pos, N).to(torch.int64)
     src = torch.full((N + 1,), N - 1, dtype=I32, device=valid.device)
     src.scatter_(0, tgt, _iota(N, valid.device))
-    src[N] = N - 1
+    src[N:].fill_(N - 1)  # a fill: the graphs capture no host copy
     return src[:N], pos[-1] + 1
 
 
@@ -971,6 +974,21 @@ def migrate_pool_state(src_p: PoolParams, dst_p: PoolParams, state, sel):
     return out
 
 
+def _block_windows(p: PoolParams, state, means, sb):
+    """A block's start: with ``p.handoff``, the state with the promoted
+    slots' sw latch cleared and the windows (sb_m, sb_o, sb_armed) its
+    events read (nothing armed where ``sb`` is None); else (state, None)."""
+    if not p.handoff:
+        return state, None
+    if sb is None:
+        B, T = means.shape
+        sb = _zero_windows(B, T, means.device)
+    sb_m, sb_o, sb_armed, promote = sb
+    state = dict(state)
+    state["sw"] = state["sw"] & (~promote)
+    return state, (sb_m, sb_o, sb_armed)
+
+
 def pool_advance_block(idx, p: PoolParams, state, means, on, sb=None):
     """Advance all read slots through T events: means/on are [B, T].
 
@@ -979,16 +997,7 @@ def pool_advance_block(idx, p: PoolParams, state, means, on, sb=None):
     slots' next reads), which slots have one armed, and which switched
     slots the host has promoted to the primary lane (their sw latch
     clears before the first event)."""
-    if p.handoff:
-        if sb is None:
-            B, T = means.shape
-            sb = _zero_windows(B, T, means.device)
-        sb_m, sb_o, sb_armed, promote = sb
-        state = dict(state)
-        state["sw"] = state["sw"] & (~promote)
-        win = (sb_m, sb_o, sb_armed)
-    else:
-        win = None
+    state, win = _block_windows(p, state, means, sb)
     for t in range(means.shape[1]):
         ph = tracing.phases("engine.step")
         state = _pool_event_step(idx, p, state, means[:, t], on[:, t],
@@ -1040,6 +1049,8 @@ class PooledEngine:
             self.READOUT_KEYS = READOUT_KEYS + ("sw",) + tuple(
                 "lt_" + k for k in LATCH_KEYS)
         self._zero_sb = {}  # (B, T) -> standby windows with nothing armed
+        self._blocks = {}  # (T, W) -> the graphs of that block shape
+        self.graph_captures = self.graph_steps = self.eager_steps = 0
         self.fmi = fmi
         self.model = model
         self.idx = device_index(
@@ -1072,7 +1083,23 @@ class PooledEngine:
         """T events for every slot (means/on [B, T]); with the handoff on,
         ``sb`` = (sb_means [B, 2T], sb_on [B, 2T], armed [B], promote [B])
         host arrays, or None for windows with nothing armed (kept on the
-        device per (B, T))."""
+        device per (B, T)).
+
+        On the card with an unsharded index (``graphs.eligible``) the first
+        block of each shape runs eagerly, and every later one replays the
+        step's CUDA graphs (``graphs.BlockGraphs``, captured at the second):
+        the state returned is then the runner's buffers, which the next
+        ``advance`` overwrites.  ``graph_captures``, ``graph_steps`` and
+        ``eager_steps`` count the captures and the events of each path."""
+        T = np.shape(means)[1]
+        W = 0
+        if self.params.handoff:
+            W = 2 * T if sb is None else np.shape(sb[0])[1]
+        blk = self._blocks.get((T, W))
+        if blk is not None:
+            self.graph_captures += not blk.captured
+            self.graph_steps += T
+            return blk.run(state, means, on, sb)
         with tracing.span("engine.upload"):
             means = torch.as_tensor(np.asarray(means, np.float32),
                                     device=self.device)
@@ -1081,15 +1108,18 @@ class PooledEngine:
                 sb = tuple(
                     torch.as_tensor(np.asarray(a, dt), device=self.device)
                     for a, dt in zip(sb, (np.float32, bool, bool, bool)))
-        if self.params.handoff:
+        if self.params.handoff and sb is None:
+            key = tuple(means.shape)
+            sb = self._zero_sb.get(key)
             if sb is None:
-                key = tuple(means.shape)
-                sb = self._zero_sb.get(key)
-                if sb is None:
-                    sb = self._zero_sb[key] = _zero_windows(*key, self.device)
-            return pool_advance_block(self.idx, self.params, state, means,
-                                      on, sb=sb)
-        return pool_advance_block(self.idx, self.params, state, means, on)
+                sb = self._zero_sb[key] = _zero_windows(*key, self.device)
+        out = pool_advance_block(self.idx, self.params, state, means, on,
+                                 sb=sb)
+        self.eager_steps += T
+        if graphs.eligible(self.device, self.idx):
+            self._blocks[(T, W)] = graphs.BlockGraphs(
+                self.idx, self.params, T, W, self.device)
+        return out
 
     def readout_start(self, state):
         return readout_start(state, self.READOUT_KEYS)

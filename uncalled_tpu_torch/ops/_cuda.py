@@ -180,7 +180,10 @@ def launch(name: str, *args) -> None:
     fn = getattr(_lib(stem), name)
     if len(args) != len(kinds):
         raise TypeError(f"{name}: expected {len(kinds)} args, got {len(args)}")
-    stream = torch.cuda.current_stream().cuda_stream
+    # the raw handle of the current stream (what torch.cuda.current_stream()
+    # .cuda_stream gives, without its Stream object and device checks: a
+    # graph replay launches ~35 wrappers an event)
+    stream = torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())
     keep = [_arg(k, v) for k, v in zip(kinds, args)]
     rc = fn(*keep, ctypes.c_void_p(stream))
     if rc != 0:

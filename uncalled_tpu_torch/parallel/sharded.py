@@ -253,6 +253,7 @@ class ShardedPooledEngine(_ShardedBase, PooledEngine):
             fmi, threshes, model,
             ("occ_rows", "sa_samp" if p.sampled_sa else "sa"),
             p.sampled_sa, p.sa_intv)
+        self.graph_captures = self.graph_steps = self.eager_steps = 0
 
     def fresh_state(self):
         # the dead-slot marker q_rid is the local B: each rank's step runs
@@ -266,7 +267,10 @@ class ShardedPooledEngine(_ShardedBase, PooledEngine):
         raise ValueError(DRAIN_MIGRATION_REFUSED)
 
     def advance(self, state, means, on):
+        """Eager always: the sharded walk syncs with the host, so no block
+        of a sharded engine is captured (``graphs.eligible``)."""
         from ..mapping.pooled import pool_advance_block
 
         m, o = self._host_block(means, on)
+        self.eager_steps += m.shape[1]
         return pool_advance_block(self.idx, self._p_local, state, m, o)
