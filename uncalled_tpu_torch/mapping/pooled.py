@@ -28,7 +28,7 @@ row sample (``ops.sa_lookup``, its own kernel on the card).
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import asdict, dataclass
 
 import numpy as np
 import torch
@@ -974,6 +974,20 @@ def migrate_pool_state(src_p: PoolParams, dst_p: PoolParams, state, sel):
     return out
 
 
+def widen_pool_state(p: PoolParams, state):
+    """``state`` in ``p``'s shape, where ``p`` has as many read slots and
+    pools and cluster tables at least as large: each array keeps its
+    values in its leading corner and the rest takes fresh ones (dead pool
+    slots at the pool's tail, free cluster entries after the used ones),
+    which is the state ``p``'s engine would hold had it run the same
+    events from the start without a cut.  ``dm_pool`` starts fresh."""
+    out = make_pool_state(p, state["n_paths"].device)
+    for k, f in out.items():
+        if k != "dm_pool":
+            f[tuple(slice(0, n) for n in state[k].shape)] = state[k]
+    return out
+
+
 def _block_windows(p: PoolParams, state, means, sb):
     """A block's start: with ``p.handoff``, the state with the promoted
     slots' sw latch cleared and the windows (sb_m, sb_o, sb_armed) its
@@ -1024,7 +1038,7 @@ class PooledEngine:
     READOUT_KEYS = READOUT_KEYS
 
     def __init__(self, fmi, model, threshes, conf: Conf | None = None,
-                 device=None, **over):
+                 device=None, index=None, **over):
         self.device = resolve(device)
         self.conf = conf or Conf()
         # the JAX engine's accelerator rule: the bitonic sort with its
@@ -1053,10 +1067,24 @@ class PooledEngine:
         self.graph_captures = self.graph_steps = self.eager_steps = 0
         self.fmi = fmi
         self.model = model
-        self.idx = device_index(
+        # ``index``: an engine's device index, shared (see ``widened``)
+        self.idx = index if index is not None else device_index(
             fmi, threshes, model, device=self.device,
             sampled_sa=p.sampled_sa, sa_intv=p.sa_intv,
         )
+
+    def widened(self, **sizes) -> "PooledEngine":
+        """An engine like this one with the pool sizes ``sizes`` (fields of
+        :class:`PoolParams`, none smaller than this engine's) and the same
+        index on the device; its step counters go on from this one's.
+        :func:`widen_pool_state` carries a state over to it."""
+        eng = PooledEngine(self.fmi, self.model, None, self.conf,
+                           device=self.device, index=self.idx,
+                           **{**asdict(self.params), **sizes})
+        eng.graph_captures = self.graph_captures
+        eng.graph_steps = self.graph_steps
+        eng.eager_steps = self.eager_steps
+        return eng
 
     def fresh_state(self):
         return make_pool_state(self.params, self.device)

@@ -140,16 +140,35 @@ class SimRead:
 
 
 class SimChannel:
-    """One channel: interval queue + cyclic read list (client_sim.hpp:250-370)."""
+    """One channel: interval queue + read source (client_sim.hpp:250-370).
+    The reads come from ``draw(k)``, the channel's k-th read; by default
+    the reads loaded by ``load_read``, in turn and round again."""
 
     def __init__(self, channel: int):
         self.channel = channel
         self.intvs: deque[ScanIntv] = deque()
         self.reads: list[SimRead | None] = []
-        self.r = 0
+        self.read: SimRead | None = None  # the read on the channel
+        self.n_drawn = 0
         self.extra_gap = 0
         self.read_count = 0
         self.active = False
+        self.draw = lambda k: self.reads[k % len(self.reads)]
+        self.started = {}  # read number -> (channel, start, samples)
+
+    def current(self) -> SimRead:
+        if self.read is None:
+            self._next_read()
+        return self.read
+
+    def _next_read(self):
+        self.read = self.draw(self.n_drawn)
+        self.n_drawn += 1
+
+    def _start_read(self, t: int):
+        rd = self.current()
+        rd.start(t)
+        self.started[rd.number] = (self.channel, t, rd.duration)
 
     def is_dead(self) -> bool:
         return not self.intvs
@@ -164,10 +183,10 @@ class SimChannel:
             return False
         if self.intvs[0].is_active(t):
             if not self.active:
-                self.reads[self.r].start(t + self.intvs[0].next_gap())
+                self._start_read(t + self.intvs[0].next_gap())
                 self.active = True
         elif self.active:
-            self.r = (self.r + 1) % len(self.reads)
+            self._next_read()
             self.active = False
         return self.active
 
@@ -190,16 +209,16 @@ class SimChannel:
     def chunk_ready(self, t: int) -> bool:
         if not self.intvs[0].is_active(t):
             return False
-        end = self.reads[self.r].get_end()
+        end = self.current().get_end()
         while t >= end:
-            self.r = (self.r + 1) % len(self.reads)
-            self.reads[self.r].start(end + self.intvs[0].next_gap() + self.extra_gap)
+            self._next_read()
+            self._start_read(end + self.intvs[0].next_gap() + self.extra_gap)
             self.extra_gap = 0
-            end = self.reads[self.r].get_end()
-        return self.reads[self.r].chunk_ready(t)
+            end = self.read.get_end()
+        return self.read.chunk_ready(t)
 
     def read_number(self) -> int:
-        return self.reads[self.r].number
+        return self.current().number
 
     def intv_ended(self, t: int) -> bool:
         return self.is_dead() or self.intvs[0].get_end() <= t
@@ -210,11 +229,11 @@ class SimChannel:
             self.intvs[0].start(t)
 
     def stop_receiving_read(self):
-        self.reads[self.r].stop_receiving()
+        self.current().stop_receiving()
 
     def unblock(self, t: int, ej_time: int) -> int:
         delay = self.intvs[0].next_delay()
-        self.reads[self.r].unblock(t, delay)
+        self.current().unblock(t, delay)
         self.extra_gap = ej_time
         return delay
 
@@ -235,6 +254,10 @@ class ClientSim:
         self.scan_time = int(sp.scan_time * sample_rate)
         self.channels = [SimChannel(c + 1) for c in range(rd.num_channels)]
         self.read_locs: dict[str, tuple[int, int, int]] = {}
+        # read number -> (channel, start sample, samples), at each start
+        self.started = {}
+        for ch in self.channels:
+            ch.started = self.started
         self.is_running_ = False
         self.in_scan = False
         self.scan_start = 0
@@ -307,6 +330,17 @@ class ClientSim:
             )
             number += 1
 
+    def set_read_source(self, draw):
+        """Draw reads as the channels need them, in place of the reads
+        loaded up front: ``draw(channel, k)`` gives ``channel``'s k-th read
+        (an object with ``id``, ``signal`` and ``number``)."""
+        def sim_read(c, k):
+            read = draw(c, k)
+            return SimRead(read, 0, self.chunk_len, number=read.number)
+
+        for ch in self.channels:
+            ch.draw = lambda k, c=ch.channel: sim_read(c, k)
+
     # ----------------------------------------------------------- run surface
     def run(self):
         self.is_running_ = True
@@ -365,7 +399,7 @@ class ClientSim:
                         c + 1,
                         SimChunk(
                             c + 1, ch.read_number(), st, sig,
-                            read_id=ch.reads[ch.r].id,
+                            read_id=ch.read.id,
                         ),
                     )
                 )
@@ -377,7 +411,7 @@ class ClientSim:
 
     @staticmethod
     def reads_pop(ch: SimChannel):
-        return ch.reads[ch.r].pop_chunk()
+        return ch.read.pop_chunk()
 
     def get_number(self, ch: int) -> int:
         return self.channels[ch - 1].read_number()

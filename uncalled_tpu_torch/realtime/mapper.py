@@ -10,7 +10,17 @@ balancing" disappears into batching (SURVEY §5.8).
 Per-read give-up budgets follow mapper.cpp:381-431: max_events, max_chunks,
 and a chunk timeout measured on the sim/sample clock instead of wall time
 (deterministic; the reference uses wall time, which makes its sim runs
-load-dependent)."""
+load-dependent).
+
+A slot cannot re-run a read's history, so a read its pooled engine cuts
+for room (a path, candidate, seed-row or cluster pool full) is lost to
+mapping.  The pools therefore start at the conf's sizes and grow with the
+demand the engine reports: after each update, every pool whose demand
+since the last growth passed ``GROW_AT`` of it doubles until it no longer
+does, and the state moves over to the wider engine
+(``PooledEngine.widened``, ``widen_pool_state``), which replays its own
+CUDA graphs from its second block.  A read's seed rows are capped only by
+the batch's row pool (``R`` = ``RT``), which grows too."""
 
 from __future__ import annotations
 
@@ -18,13 +28,16 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .. import tracing
 from ..config import Conf
 from ..kmer import K
 from ..mapping.batch import BatchMapper
 from ..mapping.paf import Paf, Tag
+from ..mapping.pooled import PooledEngine, widen_pool_state
 from .signal import ChannelDSP
 
 F32 = np.float32
+GROW_AT = 0.75  # share of a pool its demand may reach before it doubles
 
 
 @dataclass
@@ -62,6 +75,12 @@ class RealtimeMapper:
         self.bm = BatchMapper(fmi, model, threshes, self.conf,
                               device=device, **over)
         self.eng = self.bm.eng
+        self.grows: list = []  # (update number, {field: (old, new)})
+        self.n_updates = 0
+        if isinstance(self.eng, PooledEngine):
+            p = self.eng.params
+            if p.R < p.RT:
+                self.eng = self.bm.eng = self.eng.widened(R=p.RT)
         self.state = self.eng.fresh_state()
         self.channels = [_Channel() for _ in range(n_ch)]
         self.T = self.conf.engine.evt_block
@@ -96,6 +115,7 @@ class RealtimeMapper:
         mask[c] = True
         self.state = self.eng.reset_slots(self.state, mask)
 
+    @tracing.traced("realtime.add_chunks")
     def add_chunks(self, chunks, now: float):
         """Route incoming chunks; a new read number resets the channel
         (realtime_pool.cpp:74-104)."""
@@ -113,7 +133,10 @@ class RealtimeMapper:
                     # replacement-ended reads count in the give-up
                     # telemetry too (never an ovf cut)
                     self.giveups.append((ch.read_id, False, ch.n_chunks))
-                self._start_read(c, chunk, now)
+                    tracing.count("rt_giveups")
+                with tracing.span("realtime.reset"):
+                    self._start_read(c, chunk, now)
+                tracing.count("rt_resets")
             ch = self.channels[c]
             ch.n_chunks += 1
             ch.samples += len(chunk.signal)
@@ -126,12 +149,15 @@ class RealtimeMapper:
             cap = self.conf.realtime.max_event_backlog
             if cap and ch.dsp.norm.unread_size() >= cap:
                 ch.shed_chunks += 1
+                tracing.count("rt_shed_chunks")
                 continue
-            ch.dsp.process_chunk(chunk.signal)
+            with tracing.span("realtime.dsp"):
+                ch.dsp.process_chunk(chunk.signal)
 
     def update(self, now: float):
         """Advance all channels by up to T events; return finished reads."""
         B, T = len(self.channels), self.T
+        sp = tracing.span("realtime.advance")
         means = np.zeros((B, T), np.float32)
         on = np.zeros((B, T), bool)
         active = False
@@ -154,11 +180,19 @@ class RealtimeMapper:
                     if ch.qt < 0:
                         ch.qt = (t0 - ch.t_start) * 1000.0
                     ch.mt_acc += dt_ms
-        ro = self.eng.readout(self.state)
+            tracing.count("rt_events", int(on.sum()))
+        sp.close()
+        with tracing.span("realtime.readout"):
+            ro = self.eng.readout(self.state)
+        self.n_updates += 1
+        if isinstance(self.eng, PooledEngine):
+            self._fit_pools(ro)
 
         out = list(self._pending)
         self._pending = []
         mp = self.conf.mapper
+        due = []  # (slot, channel, success) of the reads decided now
+        sp = tracing.span("realtime.decide")
         for c, ch in enumerate(self.channels):
             if ch.number < 0 or ch.done_reported:
                 continue
@@ -171,7 +205,8 @@ class RealtimeMapper:
             # sequencing (the conservative ReadUntil outcome).  The
             # batch mapper instead REMAPS such reads on a wider tier;
             # a realtime slot cannot re-run its history, so the valve
-            # is give-up.  Sized so this ~never fires (dm_pool).
+            # is give-up.  The pools grow ahead of the demand
+            # (_fit_pools), so that this does not fire.
             timed_out = (
                 int(ro["evt_i"][c]) >= mp.max_events
                 or (now - ch.last_chunk_t) * 1000.0 > mp.chunk_timeout
@@ -180,16 +215,51 @@ class RealtimeMapper:
             )
             if not (success or timed_out):
                 continue
+            due.append((c, ch, success))
+        sp.close()
+        for c, ch, success in due:
             paf = self._make_paf(c, ch, ro, success)
             if not success:
                 paf.ended = True
                 self.giveups.append(
                     (ch.read_id, bool(ro["ovf"][c]), ch.n_chunks)
                 )
+                tracing.count("rt_giveups")
             ch.done_reported = True
             out.append((c + 1, ch.number, paf))
         return out
 
+    def _fit_pools(self, ro):
+        """Double each pool whose demand passed ``GROW_AT`` of it, and move
+        the state to an engine of the new sizes."""
+        p = self.eng.params
+        flags, valid, keep, ent, rows = (
+            int(x) for x in self.state["dm_pool"].cpu().numpy())
+        RE = min(p.RE, p.S + p.SC)  # the step's effective budgets
+        demand = dict(S=(keep, p.S), SC=(max(flags, valid), p.SC),
+                      RE=(ent, RE), RT=(rows, min(p.RT, RE * p.max_rep_copy)),
+                      CL=(int(ro["dm_cl"].max()), p.CL))
+        new = {}
+        for k, (d, cap) in demand.items():
+            size = getattr(p, k)
+            while d > GROW_AT * cap:
+                size, cap = 2 * size, 2 * cap
+            if size != getattr(p, k):
+                new[k] = size
+        if not new:
+            return
+        with tracing.span("realtime.grow"):
+            if "S" in new:
+                new["SC"] = max(new.get("SC", p.SC), new["S"] + new["S"] // 4)
+            if "RT" in new:
+                new["R"] = new["RT"]
+            self.grows.append((self.n_updates, {
+                k: (getattr(p, k), v) for k, v in new.items()}))
+            self.eng = self.bm.eng = self.eng.widened(**new)
+            self.state = widen_pool_state(self.eng.params, self.state)
+        tracing.count("rt_grows")
+
+    @tracing.traced("realtime.make_paf")
     def _make_paf(self, c: int, ch: _Channel, ro, success: bool) -> Paf:
         import time
 

@@ -17,6 +17,7 @@ import os
 import sys
 import time
 
+from .. import tracing
 from ..config import Conf
 from .clientsim import ClientSim
 
@@ -78,8 +79,16 @@ def default_pattern(client: ClientSim, reads, duration_samples: int,
 
 def run_sim_loop(client: ClientSim, rt, conf: Conf, deplete: bool,
                  even: bool = False, odd: bool = False, duration: float = 0.0,
-                 out=None, sleep=0.01, clock=None, max_wall: float = 0.0):
-    """The shared realtime/sim decision loop. Returns emitted Paf count."""
+                 out=None, sleep=0.01, clock=None, max_wall: float = 0.0,
+                 stop=None):
+    """The shared realtime/sim decision loop. Returns emitted Paf count.
+
+    ``stop``, where given, is called once a pass, after the pass's chunks
+    are delivered and before the clock moves on; the loop ends when it
+    returns true.  Each pass is an ``rt_loop.tick`` span of the tracer,
+    made of ``rt_loop.update`` (the mapper's update and the decisions)
+    and ``rt_loop.chunks`` (the chunks read and delivered); counters
+    ``rt_ticks`` and ``rt_decisions.<kind>`` (kp, ej, mx, en)."""
     out = out or sys.stdout
     clock = clock or time.monotonic
     n_ch = len(client.channels)
@@ -91,16 +100,19 @@ def run_sim_loop(client: ClientSim, rt, conf: Conf, deplete: bool,
 
     client.run()
     while client.is_running():
+        tick = tracing.span("rt_loop.tick")
+        tracing.count("rt_ticks")
         t0 = clock()
         now = clock()
+        sp = tracing.span("rt_loop.update")
         for ch, nm, paf in rt.update(now):
             t = now - chunk_times[ch - 1]
             if paf.ended:
-                paf.set_float("en", t)
+                kind = "en"
                 client.stop_receiving_read(ch, nm)
             elif (paf.is_mapped and deplete) or not (paf.is_mapped or deplete):
                 if client.should_eject():
-                    paf.set_float("ej", t)
+                    kind = "ej"
                     u = client.unblock_read(ch, nm)
                     if u is not None:
                         # sim only: the reference stamps dl just for the
@@ -109,14 +121,18 @@ def run_sim_loop(client: ClientSim, rt, conf: Conf, deplete: bool,
                         paf.set_int("dl", u)
                     unblocked[ch - 1] = nm
                 else:
-                    paf.set_float("mx", t)
+                    kind = "mx"
                     client.stop_receiving_read(ch, nm)
             else:
-                paf.set_float("kp", t)
+                kind = "kp"
                 client.stop_receiving_read(ch, nm)
+            paf.set_float(kind, t)
+            tracing.count("rt_decisions." + kind)
             out.write(paf.to_line() + "\n")
             n_out += 1
+        sp.close()
 
+        sp = tracing.span("rt_loop.chunks")
         batch = []
         for channel, chunk in client.get_read_chunks():
             if (even and channel % 2 == 1) or (odd and channel % 2 == 0):
@@ -129,10 +145,14 @@ def run_sim_loop(client: ClientSim, rt, conf: Conf, deplete: bool,
             batch.append((channel, chunk))
         if batch:
             rt.add_chunks(batch, clock())
+        sp.close()
+        tick.close()
 
         if client.get_runtime() >= end_time:
             break
         if max_wall and clock() - t_start > max_wall:
+            break
+        if stop is not None and stop():
             break
         if hasattr(clock, "advance"):
             clock.advance(sleep or 0.01)  # deterministic test clock

@@ -121,6 +121,7 @@ class Tracer:
     def _clear(self):
         self.spans = []  # every span opened, in the order they opened
         self.totals = {}  # name -> [seconds, calls, self seconds]
+        self.counts = {}  # counter name -> sum
         self.stack = []  # the open spans, innermost last
         self.n_block = 0
 
@@ -186,6 +187,17 @@ def disable():
 
 def snapshot() -> dict:
     return TRACER.snapshot()
+
+
+def counts() -> dict:
+    """Counter name -> the sum counted while the tracer was on."""
+    return dict(TRACER.counts)
+
+
+def count(name, n=1):
+    """Add ``n`` to counter ``name`` (nothing while the tracer is off)."""
+    if TRACER.on:
+        TRACER.counts[name] = TRACER.counts.get(name, 0) + n
 
 
 def span(name, t=None):
