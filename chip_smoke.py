@@ -276,6 +276,11 @@ KERNELS = {
     "sa_walk_step": dict(
         route="cuda", source="uncalled_tpu_torch/csrc/sa_lookup.cu",
         replaces="uncalled_tpu/mapping/engine.py:338-381"),
+    # no Pallas kernel: the two-level associative_scan of the JAX step's
+    # segmented running max
+    "seg_running_max": dict(
+        route="cuda", source="uncalled_tpu_torch/csrc/seg_scan.cu",
+        replaces="uncalled_tpu/mapping/pooled.py:439-484"),
 }
 # the device event detector (phase 2 at B=512, S=4096 over three blocks);
 # its f64 operations a sample and the H100 SXM's FP64 vector peak (NVIDIA
@@ -299,12 +304,20 @@ SA_INTV = 32
 # probe.cu holds measurement probes (an empty launch, a pointer chase), no
 # kernel of the mapper
 STEMS = ("detect", "flat_gather", "probe", "row_gather", "sa_lookup",
-         "shard", "sortkern", "stepkern", "tracker_kernel")
+         "seg_scan", "shard", "sortkern", "stepkern", "tracker_kernel")
 # phase 9, the sharded engines: their two kernels, the reads of (c) (the
 # first of phase 4's timed reads), and each rank start's time limit
 SHARD_KERNELS = ("shard_take", "sa_walk_step")
 N_SHARDED = 64
 SHARD_TIMEOUT_S = 420
+# the segmented running max's headline widths: SC of the realtime cell
+# (S widened to 294,912) and of the batch cell (NP of its sort), and the
+# classic step's [B, CE] rows
+SEG_SHAPES = ((368640,), (131072,), (64, 1280))
+# kernels the pooled step launches inside its graph pieces, with their
+# device kernels' names: a replay launches them with no wrapper call, so
+# _cuda.COUNTS misses them, and their launches are read off a device trace
+IN_GRAPH = {"seg_running_max": ("tile_aggregates", "tile_scan")}
 
 
 _T0 = time.time()
@@ -1225,11 +1238,81 @@ def phase_kernels(out, rate):
                          shape=f"{label} rows={nrows}",
                          key=None if head else f"tracker_fold_rows[{label}]",
                          rows_longest=int(rows_r.clamp(max=R).max()))
+    ok &= seg_scan_checks(out, rate, dev)
     ok &= phase_merge(out, rate, rng, dev)
     ok &= phase_folds(out, dev)
     ok &= realtime_shapes(dev)
     ok &= sa_lookup_example(out, dev)
     ok &= shard_kernels(out, rate, dev)
+    return ok
+
+
+def seg_case(rng, dev, shape, p=0.3):
+    """seg_id non-decreasing along the last dimension (runs of mean length
+    1 / p, restarting in every row) and int32 vals over the whole range."""
+    import torch
+
+    seg = np.cumsum(rng.random(shape) < p, -1).astype(np.int32)
+    vals = rng.integers(-2**31, 2**31, shape, dtype=np.int64).astype(np.int32)
+    return (torch.from_numpy(seg).to(dev), torch.from_numpy(vals).to(dev))
+
+
+def seg_cummax(seg, vals):
+    """The yardstick the port no longer calls: one int64 torch.cummax of
+    (seg_id << 32 | vals + 2^31), unpacked."""
+    import torch
+
+    key = (seg.to(torch.int64) << 32) | (vals.to(torch.int64) + 2**31)
+    run = torch.cummax(key, -1).values
+    return ((run & 0xFFFFFFFF) - 2**31).to(torch.int32)
+
+
+def seg_scan_checks(out, rate, dev) -> bool:
+    """The segmented running max against its plain version, bit for bit,
+    and timed beside it and the int64 cummax, at SEG_SHAPES; then the
+    tiles' edges, the scalar path, segments across every tile and of one
+    element, the int32 extremes, and twenty runs on one input.  Its own
+    seed."""
+    import torch
+
+    from uncalled_tpu_torch.ops import seg_scan as ss
+
+    rng = np.random.default_rng(20261019)
+    ok = True
+    for i, shape in enumerate(SEG_SHAPES):
+        s, v = seg_case(rng, dev, shape)
+        want = ss.seg_running_max_plain(s, v)
+        ok &= check(f"seg_running_max[{shape}] against the int64 cummax",
+                    seg_cummax(s, v), want)
+        ok &= report(
+            out["kernels"] if i == 0 else out["kernel_shapes"],
+            "seg_running_max", ss.seg_running_max(s, v), want, rate,
+            lambda s=s, v=v: ss.seg_running_max(s, v),
+            lambda s=s, v=v: ss.seg_running_max_plain(s, v),
+            lambda s=s, v=v: seg_cummax(s, v), nbytes=12 * v.numel(),
+            key=None if i == 0 else f"seg_running_max[{shape}]",
+            shape=f"{shape}, {-(-shape[-1] // ss.TILE)} tiles a row")
+    n = SEG_SHAPES[0][0]
+    t = ss.TILE
+    cases = [(f"n={m}", *seg_case(rng, dev, (m,)))
+             for m in (1, 5, t - 1, t, t + 1, 3 * t + 17)]
+    cases.append(("[64, 1283] (scalar path)", *seg_case(rng, dev, (64, 1283))))
+    s, v = seg_case(rng, dev, (n + 1,))
+    cases.append(("unaligned view", s[1:], v[1:]))
+    v = seg_case(rng, dev, (n,))[1]
+    cases.append(("one segment", torch.full_like(v, 3), v))
+    cases.append(("every element its own segment",
+                  torch.arange(n, dtype=torch.int32, device=dev), v))
+    ext = rng.choice(np.array([-2**31, 2**31 - 1, 0], np.int32), n)
+    cases.append(("int32 extremes", seg_case(rng, dev, (n,), 0.001)[0],
+                  torch.from_numpy(ext).to(dev)))
+    for label, s, v in cases:
+        ok &= check(f"seg_running_max[{label}]", ss.seg_running_max(s, v),
+                    ss.seg_running_max_plain(s, v))
+    s, v = seg_case(rng, dev, (n,), 0.02)
+    want = ss.seg_running_max_plain(s, v)
+    ok &= check(f"seg_running_max[n={n}, twenty runs]",
+                [ss.seg_running_max(s, v) for _ in range(20)], [want] * 20)
     return ok
 
 
@@ -1626,6 +1709,21 @@ def check(name, got, want, ph=2) -> bool:
     return eq
 
 
+def wrapper_counts():
+    """The wrapper calls of ``_cuda.COUNTS``, less the kernels IN_GRAPH
+    (their count leaves out every replayed launch)."""
+    from uncalled_tpu_torch.ops import _cuda
+
+    return {k: v for k, v in _cuda.COUNTS.items() if k not in IN_GRAPH}
+
+
+def graph_launches(kern, name):
+    """The device launches of the IN_GRAPH kernel ``name`` among the traced
+    kernel events ``kern``."""
+    return [e for e in kern
+            if any(t in e.get("name", "") for t in IN_GRAPH[name])]
+
+
 def report(res, name, got, want, rate, kfn, pfn, lfn, nbytes, shape,
            plain_reps=10, key=None, rows_longest=None, ph=2,
            plain_events=False) -> bool:
@@ -1810,7 +1908,7 @@ def golden_run(tag, bm, rids, golden, sigs, kernels):
     t0 = time.time()
     got = {p.rd_name: p.to_line() for p in bm.map_reads(reads)}
     dt = time.time() - t0
-    counts = dict(_cuda.COUNTS)
+    counts = wrapper_counts()
     bad = [r for r in rids if got.get(r) != golden[r]]
     gr = graph_counts(bm)
     log(f"[3] {tag}: {len(rids) - len(bad)}/{len(rids)} lines "
@@ -1891,7 +1989,7 @@ def phase_golden_defaults(out, fmi, th, golden, sigs):
         got = {p.rd_name: p.to_line()
                for p in bm.map_reads([_Read(r, sigs[r]) for r in rids])}
         dt = time.time() - t0
-        counts = dict(_cuda.COUNTS)
+        counts = wrapper_counts()
         chain = _chain(bm)
         bad = [r for r in rids if got.get(r) != golden[r]]
         info = dict(
@@ -2106,7 +2204,9 @@ POOLED_HOOKS = {  # a captured kernel -> the module and name the step
     "pair_counts": ("pooled", "pair_counts"),
     "flat_gather": ("colgather", "gather"),
     "sort_runs": ("pooled", "sort_runs"),
-    "merge_level": ("pooled", "merge_level_")}
+    "merge_level": ("pooled", "merge_level_"),
+    # inside a graph piece: called by eager blocks and captures only
+    "seg_running_max": ("pooled", "seg_running_max")}
 
 
 @contextlib.contextmanager
@@ -2115,7 +2215,11 @@ def capture_pooled(limits, NP=None):
     block runs: up to limits[name] calls of each kernel named, tracker
     folds only where they carry seed rows, and with NP only the sorts of
     that padded width (the merge levels of the first sort captured).
+    The segmented running max is taken from eager steps (not while a
+    graph captures), where its segments run past 0.
     Yields {name: [argument tuple, ...]} for pooled_pair."""
+    import torch
+
     import uncalled_tpu_torch.mapping.pooled as pooled
     import uncalled_tpu_torch.ops.colgather as colgather
 
@@ -2126,7 +2230,10 @@ def capture_pooled(limits, NP=None):
         flat_gather=lambda kernel, *a, **k: kernel == "flat_gather",
         sort_runs=lambda keys, n, w: NP is None or n == NP,
         merge_level=lambda buf, k, c: bool(cap.get("sort_runs")) and (
-            NP is None or buf.shape[1] == NP))
+            NP is None or buf.shape[1] == NP),
+        seg_running_max=lambda seg, vals: (
+            not torch.cuda.is_current_stream_capturing()
+            and int(seg[-1]) > 0))
     copy = dict(
         tracker_fold=lambda *a: (a[0], {k: v.clone() for k, v in a[1].items()},
                                  *[x.clone() for x in a[2:]]),
@@ -2135,7 +2242,8 @@ def capture_pooled(limits, NP=None):
         flat_gather=lambda kernel, cols, idx, lens=None, out=None: (
             keep(cols), idx.clone(), lens),
         sort_runs=lambda keys, n, w: ([k.clone() for k in keys], n, w),
-        merge_level=lambda buf, k, c: (buf.clone(), k, c))
+        merge_level=lambda buf, k, c: (buf.clone(), k, c),
+        seg_running_max=lambda seg, vals: (seg.clone(), vals.clone()))
     site = {k: (mods[POOLED_HOOKS[k][0]], POOLED_HOOKS[k][1]) for k in limits}
     orig = {k: getattr(*site[k]) for k in limits}
 
@@ -2162,10 +2270,13 @@ def pooled_pair(name, a):
     import torch
 
     from uncalled_tpu_torch.ops import flat_gather as fg
+    from uncalled_tpu_torch.ops import seg_scan as ss
     from uncalled_tpu_torch.ops import sortkern as sk
     from uncalled_tpu_torch.ops import stepkern as stk
     from uncalled_tpu_torch.ops import tracker_kernel as tk
 
+    if name == "seg_running_max":
+        return ss.seg_running_max(*a), ss.seg_running_max_plain(*a)
     if name == "tracker_fold":
         return tk.tracker_run_compact(*a), tk.tracker_run_compact_plain(*a)
     if name == "ring_assemble":
@@ -2220,6 +2331,8 @@ def capture_shape(name, a) -> str:
         return f" (NP={a[1]}, W={a[2]})"
     if name == "merge_level":
         return f" (NP={a[0].shape[1]}, k_lv={a[1]}, C={a[2]})"
+    if name == "seg_running_max":
+        return f" (N={a[0].numel()}, {int(a[0][-1]) + 1} segments)"
     return ""
 
 
@@ -2260,10 +2373,10 @@ def phase_real(out, rate):
     _cuda.reset_counts()
     t0 = time.time()
     with capture_pooled(dict(tracker_fold=3, ring_assemble=3, pair_counts=3,
-                             flat_gather=9)) as captured:
+                             flat_gather=9, seg_running_max=3)) as captured:
         warm_lines = {pf.rd_name: pf.to_line() for pf in bm.map_reads(warm)}
     dt = time.time() - t0
-    counts = dict(_cuda.COUNTS)
+    counts = wrapper_counts()
     tie_eq = {rid: strip_wall(warm_lines.get(rid, "")) == strip_wall(
         tie_want["stable"][rid]) for rid in tie_sig}
     for rid in tie_sig:
@@ -2312,7 +2425,7 @@ def phase_real(out, rate):
     pafs = list(bm2.map_reads(timed))
     torch.cuda.synchronize()
     dt = time.time() - t0
-    counts = dict(_cuda.COUNTS)
+    counts = wrapper_counts()
     tiers = bm2.tiers()
     steps = sum(m.disp_events // m.eng.params.B for m in tiers)
     steps0 = bm2.disp_events // B_FULL
@@ -2349,6 +2462,13 @@ def phase_real(out, rate):
     for k in POOLED_KERNELS:
         if k in out["kernels"]:
             out["kernels"][k]["launches"] = counts[k]
+    # the segmented running max in the profiled block's replays
+    n_seg = out["profile"]["seg_running_max_launches"]
+    log(f"[4] seg_running_max: {n_seg} device launches in the profiled "
+        f"block of {bm2.T} steps")
+    ok &= n_seg > 0
+    if "seg_running_max" in out["kernels"]:
+        out["kernels"]["seg_running_max"]["launches"] = n_seg
     dev = torch.device("cuda")
     ok &= sa_lookup_real(out, rate, fmi, th, model, dev)
     ok &= sampled_real(out, fmi, th, model, conf, bm.eng.idx,
@@ -2605,7 +2725,7 @@ def sampled_real(out, fmi, th, model, conf, full_idx, reads, dev):
     finally:
         pooled.sa_lookup = orig
     dt = time.time() - t0
-    counts = dict(_cuda.COUNTS)
+    counts = wrapper_counts()
     steps = sum(m.disp_events // m.eng.params.B for m in bm.tiers())
     differ = [pf.rd_name for pf in pafs
               if lines4.get(pf.rd_name) != pf.to_line()]
@@ -2756,7 +2876,7 @@ def phase_classic(out):
     pafs = list(bm2.map_reads(timed))
     torch.cuda.synchronize()
     dt = time.time() - t0
-    counts = dict(_cuda.COUNTS)
+    counts = wrapper_counts()
     rungs = _rungs(bm2)
     steps = sum(r["steps"] for r in rungs)
     n_mapped = sum(1 for pf in pafs if pf.is_mapped)
@@ -2845,7 +2965,7 @@ def phase_defaults(out):
         pafs = list(bm2.map_reads(timed))
         torch.cuda.synchronize()
     dt = time.time() - t0
-    counts = dict(_cuda.COUNTS)
+    counts = wrapper_counts()
     chain = _chain(bm2)
     steps = sum(m.disp_events // m.eng.params.B for m in chain)
     disp = sum(m.disp_events for m in chain)
@@ -3560,7 +3680,7 @@ def phase_realtime_small(out, refs, dev="cuda"):
         t0 = time.time()
         got = fn(dev)
         dt = time.time() - t0
-        counts = dict(_cuda.COUNTS)
+        counts = wrapper_counts()
         want = refs.get(name)
         eq = got == want
         ran = all(counts[k] > 0 for k in kernels)
@@ -3647,11 +3767,13 @@ def phase_realtime(out, dev="cuda"):
 
     # the timed window: run_sim_loop alone, each update's wall time kept
     upd, adv = [], []
-    orig_update, orig_advance = rt.update, rt.eng.advance
+    # on the class: a pool's widening replaces rt.eng with a new engine
+    Engine = type(rt.eng)
+    orig_update, orig_advance = rt.update, Engine.advance
 
-    def advance(*a, **k):
+    def advance(self, *a, **k):
         adv.append(1)
-        return orig_advance(*a, **k)
+        return orig_advance(self, *a, **k)
 
     def update(now):
         n_adv = len(adv)
@@ -3660,7 +3782,7 @@ def phase_realtime(out, dev="cuda"):
         upd.append(((time.perf_counter() - t) * 1e3, len(adv) > n_adv))
         return r
 
-    rt.eng.advance, rt.update = advance, update
+    Engine.advance, rt.update = advance, update
     _cuda.reset_counts()
     buf = io.StringIO()
     t0 = time.time()
@@ -3668,11 +3790,11 @@ def phase_realtime(out, dev="cuda"):
                  out=buf, duration=RT_SECS / 3600.0)
     torch.cuda.synchronize()
     wall = time.time() - t0
-    counts = dict(_cuda.COUNTS)
+    counts = wrapper_counts()
     sim_s = client.get_runtime()
     n_adv = len(adv)
     peak = torch.cuda.max_memory_allocated()  # the window's, not the checks'
-    rt.eng.advance, rt.update = orig_advance, orig_update
+    Engine.advance, rt.update = orig_advance, orig_update
 
     # past the timed window, on the live state: the kernels' inputs from
     # the next updates (one whole NP=262144 sort, every level), re-checked
@@ -3685,16 +3807,25 @@ def phase_realtime(out, dev="cuda"):
         clock.advance(RT_TICK)
         return len(adv) > n_adv
 
-    rt.eng.advance = advance
-    NP = 1 << (p.SC - 1).bit_length()  # 262144
+    Engine.advance = advance
+    p = rt.eng.params  # the pools as the window left them
+    NP = 1 << (p.SC - 1).bit_length()  # 262144 where SC was not widened
     levels = (NP // min(sk.RUN_TILE, NP)).bit_length() - 1
     limits = dict(tracker_fold=2, ring_assemble=2, pair_counts=2,
-                  flat_gather=9, sort_runs=1, merge_level=levels)
+                  flat_gather=9, sort_runs=1, merge_level=levels,
+                  seg_running_max=2)
+    # the first of these blocks runs eagerly (the step's ops between the
+    # wrappers, the segmented running max among them, run only there); the
+    # runner comes back for the next
+    eng = rt.eng
+    runners, eng._blocks = eng._blocks, {}
     with capture_pooled(limits, NP=NP) as captured:
         for _ in range(10):
-            tick()
+            if tick():
+                eng._blocks = runners
             if all(len(captured[k]) == n for k, n in limits.items()):
                 break
+    eng._blocks = runners
     traced = {}
     for _ in range(10):
         torch.cuda.synchronize()
@@ -3706,7 +3837,7 @@ def phase_realtime(out, dev="cuda"):
         if advanced:
             traced = dict(wall_ms=(time.perf_counter() - t) * 1e3, prof=prof)
             break
-    rt.eng.advance = orig_advance
+    Engine.advance = orig_advance
     cap_ok = recheck_captured(captured, 7)
 
     tags = {"ej": [], "kp": [], "mx": [], "en": []}
@@ -3744,6 +3875,8 @@ def phase_realtime(out, dev="cuda"):
             traced_wall_ms=traced["wall_ms"],
             device_ms=dev_ms, device_ms_per_step=dev_ms / rt.T,
             kernels_per_step=len(kern) / rt.T,
+            seg_running_max_launches=len(graph_launches(kern,
+                                                        "seg_running_max")),
             idle_share=1.0 - dev_ms / med if med else None,
             idle_share_traced=1.0 - dev_ms / traced["wall_ms"])
     real = dict(
@@ -3772,11 +3905,15 @@ def phase_realtime(out, dev="cuda"):
     )
     out["realtime"] = real
     log("[7] realtime: " + json.dumps(real))
-    ran = all(counts[k] > 0 for k in DEFAULT_KERNELS)
+    n_seg = prof_info.get("seg_running_max_launches", 0)
+    if n_seg and "seg_running_max" in out["kernels"]:
+        out["kernels"]["seg_running_max"]["launches"] = n_seg
+    ran = all(counts[k] > 0 for k in DEFAULT_KERNELS) and n_seg > 0
     ok = (n_bad == 0 and n_lines > 0 and n_mapped > 0 and ran and cap_ok
           and bool(traced) and real["truth_frac"] >= RT_TRUTH_MIN)
     log(f"[7] gates: lines parse {n_bad == 0}, decisions {n_lines} > 0, "
-        f"kernels of the path launched {ran}, captured calls bit-equal to "
+        f"kernels of the path launched {ran} (seg_running_max {n_seg} "
+        f"times in the traced update), captured calls bit-equal to "
         f"the plain versions {cap_ok}, an update traced {bool(traced)}, "
         f"truth fraction {real['truth_frac']:.4f} >= {RT_TRUTH_MIN}: "
         f"{'ok' if ok else 'FAILED'}")
@@ -3955,7 +4092,7 @@ def phase_cli(out, refs):
         t0 = time.time()
         lines = [strip_wall(x) for x in run_cli(argv, clock)[0]]
         torch.cuda.synchronize()
-        counts = dict(_cuda.COUNTS)
+        counts = wrapper_counts()
         small[name] = lines
         res[name] = dict(lines=len(lines), seconds=time.time() - t0,
                          kernels_ran=all(counts[k] > 0 for k in kernels),
@@ -3989,7 +4126,7 @@ def phase_cli(out, refs):
         finally:
             BatchMapper.__init__ = init
         torch.cuda.synchronize()
-    counts = dict(_cuda.COUNTS)
+    counts = wrapper_counts()
     bm = made[0]
     chain = _chain(bm)
     steps = sum(m.disp_events // m.eng.params.B for m in chain)
@@ -4243,7 +4380,7 @@ def phase_sharded(out):
             _cuda.reset_counts()
             cases = mc.golden_cases(mesh, torch.device("cuda", 0))
             torch.cuda.synchronize()
-            counts = dict(_cuda.COUNTS)
+            counts = wrapper_counts()
         finally:
             dist.destroy_process_group()
     a_ok, bad = lines_ok(cases)
@@ -4426,6 +4563,7 @@ def profile_block(bm, reads):
     starts = [float(e["ts"]) for e in kern]
     ends = [float(e["ts"]) + float(e.get("dur", 0)) for e in kern]
     span_ms = (max(ends) - min(starts)) / 1e3 if kern else 0.0
+    seg = graph_launches(kern, "seg_running_max")
     return dict(
         live_slots=int(sum(1 for s in slots if len(s.means))),
         wall_ms_per_step=wall,
@@ -4441,6 +4579,9 @@ def profile_block(bm, reads):
         tracker_fold_ms_per_step=family_ms("tracker_fold_kernel"),
         sa_lookup_ms_per_step=family_ms("sa_lookup_kernel"),
         sa_lookup_launches_per_step=family_n("sa_lookup_kernel"),
+        seg_running_max_launches=len(seg),
+        seg_running_max_ms_per_step=sum(
+            float(e.get("dur", 0)) for e in seg) / 1e3 / T,
     )
 
 

@@ -92,7 +92,7 @@ def test_flat_helpers():
         np.int32)
     for n in (4096, 1000):
         _eq(jp._seg_running_max(jnp.asarray(seg[:n]), jnp.asarray(vals[:n])),
-            tp._seg_running_max(_t(seg[:n]), _t(vals[:n])))
+            tp.seg_running_max(_t(seg[:n]), _t(vals[:n])))
     # bucket_of / seg_broadcast over sorted starts with empty segments and
     # starts past the output width
     cnt = rng.integers(0, 9, 40).astype(np.int32)
@@ -119,6 +119,102 @@ def test_flat_helpers():
         q = rng.integers(-4, N + 10, 700).astype(np.int32)
         _eq(jp._CompactMap(jnp.asarray(v)).at(jnp.asarray(q), False),
             tp._CompactMap(_t(v)).at(_t(q)))
+
+
+def _seg_case(case, rng):
+    """(seg_id, vals) of one case of test_seg_running_max_tiles, numpy
+    int32; a 2-D case restarts its segment ids in every row."""
+    from uncalled_tpu_torch.ops.seg_scan import TILE
+
+    def vals(shape):
+        return rng.integers(-(2**31), 2**31, shape, dtype=np.int64).astype(
+            np.int32)
+
+    def segs(shape, p):
+        return np.cumsum(rng.random(shape) < p, -1).astype(np.int32)
+
+    n = dict(tile_minus_1=TILE - 1, tile=TILE, tile_plus_1=TILE + 1).get(
+        case, 3 * TILE + 17)
+    if case == "one_segment":
+        return np.full(n, 7, np.int32), vals(n)
+    if case == "singletons":
+        return np.arange(n, dtype=np.int32) - 5, vals(n)
+    if case == "int32_extremes":
+        v = rng.choice(np.array([-(2**31), 2**31 - 1, -(2**31) + 1, 0],
+                                np.int32), n)
+        v[: n // 3] = -(2**31)  # whole segments at INT32_MIN
+        return segs(n, 0.002), v
+    if case == "rows":  # [B, N], rows of 1.22 tiles: each row ends mid-tile
+        shape = (6, TILE + TILE // 4 - 3)
+        return segs(shape, 0.01), vals(shape)
+    return segs(n, 0.02), vals(n)
+
+
+@pytest.mark.parametrize("case", ["tile_minus_1", "tile", "tile_plus_1",
+                                  "tiles", "one_segment", "singletons",
+                                  "int32_extremes", "rows"])
+def test_seg_running_max_tiles(case):
+    """The segmented running max's tiled plain version (the kernel's
+    composition) against the JAX two-level scan, row by row for 2-D."""
+    import jax.numpy as jnp
+
+    from uncalled_tpu.mapping import pooled as jp
+
+    from uncalled_tpu_torch.mapping import engine as te
+    from uncalled_tpu_torch.ops import seg_scan
+
+    seg, vals = _seg_case(case, np.random.default_rng(
+        ["tile_minus_1", "tile", "tile_plus_1", "tiles", "one_segment",
+         "singletons", "int32_extremes", "rows"].index(case)))
+    rows = seg.reshape(-1, seg.shape[-1])
+    want = np.stack([np.asarray(jp._seg_running_max(jnp.asarray(s),
+                                                    jnp.asarray(v)))
+                     for s, v in zip(rows, vals.reshape(rows.shape))])
+    got = te.seg_running_max(_t(seg), _t(vals))
+    _eq(want.reshape(seg.shape), got, case)
+    _eq(want.reshape(seg.shape),
+        seg_scan.seg_running_max_plain(_t(seg), _t(vals)), case)
+
+
+def test_seg_running_max_launch(monkeypatch):
+    """Off the CPU the wrapper launches the kernel once, on the tensors it
+    was given, and never runs the plain version; it refuses what the
+    kernel does not take."""
+    from uncalled_tpu_torch.ops import _cuda
+    from uncalled_tpu_torch.ops import seg_scan
+
+    seen = []
+
+    def fake_launch(name, *args):
+        seen.append((name, [(tuple(a.shape), a.dtype) for a in args[:4]],
+                     args[4:]))
+
+    def refuse(*a):
+        raise AssertionError("the plain version ran off the CPU")
+
+    monkeypatch.setattr(_cuda, "launch", fake_launch)
+    monkeypatch.setattr(_cuda, "COUNTS", dict.fromkeys(_cuda.COUNTS, 0))
+    monkeypatch.setattr(seg_scan, "seg_running_max_plain", refuse)
+    SC = 368640
+    seg = torch.empty(SC, dtype=torch.int32, device="meta")
+    out = seg_scan.seg_running_max(seg, seg.clone())
+    assert out.shape == (SC,) and out.dtype == torch.int32
+    (name, shapes, ints), = seen
+    assert name == "seg_running_max_i32"
+    assert shapes[:3] == [((SC,), torch.int32)] * 3
+    assert shapes[3] == ((2 * -(-SC // seg_scan.TILE),), torch.int32)
+    assert ints == (1, SC)
+    assert _cuda.COUNTS == dict(dict.fromkeys(_cuda.COUNTS, 0),
+                                seg_running_max=1)
+    s2 = torch.empty((64, 1280), dtype=torch.int32, device="meta")
+    seg_scan.seg_running_max(s2, s2.clone())
+    assert seen[-1][2] == (64, 1280)
+    with pytest.raises(TypeError):
+        seg_scan.seg_running_max(seg, seg.long())
+    with pytest.raises(ValueError):
+        seg_scan.seg_running_max(seg, seg[:-1].clone())
+    with pytest.raises(ValueError):
+        seg_scan.seg_running_max(s2[:, ::2], s2[:, ::2].clone())
 
 
 def _golden_events(rids):

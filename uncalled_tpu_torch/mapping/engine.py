@@ -35,6 +35,7 @@ from ..device import resolve
 from ..kmer import KMER_COUNT
 from ..ops.mxu_gather import row_gather, row_gather_cols, shared_gather
 from ..ops.sa_lookup import sa_lookup
+from ..ops.seg_scan import seg_running_max
 from ..ops.shard_take import shard_take
 
 I32, F32, F64 = torch.int32, torch.float32, torch.float64
@@ -412,16 +413,6 @@ def _f32_sort_key(x):
     ).to(I32)
 
 
-def _seg_running_max(seg_id, vals, dim=0):
-    """Running max along ``dim`` within contiguous segments of a
-    non-decreasing int32 ``seg_id``: out[i] = max(vals[j] for j <= i,
-    seg_id[j] == seg_id[i]).  One int64 cummax of (seg_id, vals + 2^31) —
-    exact."""
-    key = (seg_id.to(torch.int64) << 32) | (vals.to(torch.int64) + 2**31)
-    run = torch.cummax(key, dim).values
-    return ((run & 0xFFFFFFFF) - 2**31).to(I32)
-
-
 # ---------------------------------------------------------------------------
 # the classic engine: parameters and state
 # ---------------------------------------------------------------------------
@@ -788,7 +779,7 @@ def _event_step(idx, p: EngineParams, st, ev, ev_on, debug=False):
     )
     first_seg = svalid & (nk_s != prev_k)
     seg_id = torch.cumsum(first_seg, 1, dtype=I32)
-    run_end = _seg_running_max(seg_id, ne_s, dim=1)
+    run_end = seg_running_max(seg_id, ne_s)
 
     km_rng = shared_gather(idx["kmer_rng2"], nk_s)  # [B, CE, 2]
     km_st = km_rng[:, :, 0]

@@ -40,6 +40,7 @@ from ..kmer import KMER_COUNT
 from ..ops.flat_gather import flat_gather, flat_gather_cols, pair_counts
 from ..ops import sortkern
 from ..ops.sa_lookup import sa_lookup
+from ..ops.seg_scan import seg_running_max
 from ..ops.sortkern import (
     merge_level,
     merge_level_,
@@ -61,7 +62,6 @@ from .engine import (
     _fm_bin,
     _match_probs,
     _ring_read,
-    _seg_running_max,
     _shard_take,
     _tracker_decide,
     device_index,
@@ -739,7 +739,7 @@ def _pool_event_step(idx, p: PoolParams, st, ev, ev_on, sb=None,
     prev_r = torch.cat([full(1, -1), rks[:-1]])
     first_seg = svalid & ((nk_s != prev_k) | (rks != prev_r))
     seg_id = _csum(first_seg)
-    run_end = _seg_running_max(seg_id, ne_s)
+    run_end = seg_running_max(seg_id, ne_s)
 
     km_st, km_en = flat_gather_cols([idx["kmer_st"], idx["kmer_en"]], nk_s)
     head_st = km_st

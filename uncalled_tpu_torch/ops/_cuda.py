@@ -49,6 +49,7 @@ _FUNCS = {
     "sa_walk_step_i32": ("sa_lookup", "ppppiiiiii"),
     "shard_take_i32": ("shard", "pppiiii"),
     "detect_block_f32": ("detect", "aii"),
+    "seg_running_max_i32": ("seg_scan", "ppppii"),
     # measurement probes (chip_smoke.py), no kernel of the mapper
     "probe_empty": ("probe", "iii"),
     "probe_chase": ("probe", "pip"),
@@ -72,6 +73,9 @@ COUNTS = {
     "sort_runs": 0,
     "sa_lookup": 0,
     "detect": 0,
+    # launched inside the step's graph pieces: counts eager calls and
+    # captures, not replays
+    "seg_running_max": 0,
     # the sharded engines (parallel/sharded.py): the shard-local row gather
     # and the sharded LF-walk's local runs
     "shard_take": 0,
